@@ -1,0 +1,151 @@
+"""Coherent FM0 detection: RN16 slicing, EPC period estimation + slicing.
+
+PyTorch counterpart of ``gen2_rfid_tpu/dsp/fm0.py`` (the re-design of
+``tag_decoder_impl::tag_detection_RN16`` :114-142 and
+``tag_detection_EPC`` :145-193), batched over frames.  The JAX package
+samples through 0/+-1 selection matmuls (a TPU gather workaround); the port
+gathers the same samples.  The position tables are rebuilt here in the
+reference's float32 arithmetic: the ``span = half / 100`` branch of the
+period grid (fm0.py:174-181) and the float32 truncation order of the bit
+positions (fm0.py:189-193).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import ReaderConfig
+
+
+def _diff_decode(signs: torch.Tensor) -> torch.Tensor:
+    """FM0 differential rule (tag_decoder_impl.cc:121-140), per row: 0 on
+    repeat, 1 on flip, previous sign initialized to +1."""
+    prev = torch.cat([torch.ones_like(signs[:, :1]), signs[:, :-1]], dim=1)
+    return (signs != prev).to(torch.int32)
+
+
+def _slice(d: torch.Tensor, h_est: torch.Tensor):
+    """Coherent decision statistic Re(d * conj(h)) and its +-1 signs."""
+    result = (d * torch.conj(h_est)[:, None]).real
+    return result, torch.where(result > 0, 1, -1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _rn16_offsets(cfg: ReaderConfig):
+    """Half-bit sample offsets round(j*T/2) of the RN16 (fm0.py:125-150) and
+    the span the slice needs, padded to a GRANULE multiple as the reference
+    pads it (the span decides where a late index is clamped)."""
+    from ..runtime.frames import GRANULE
+
+    half = cfg.n_samples_tag_bit / 2.0
+    offs = np.round(np.arange(cfg.rn16_half_bits) * half).astype(np.int64)
+    span = int(offs[-1]) + GRANULE
+    span = -(-span // GRANULE) * GRANULE
+    return offs, span
+
+
+def rn16_detect_soft(frames: torch.Tensor, index: torch.Tensor,
+                     h_est: torch.Tensor, cfg: ReaderConfig):
+    """Decode 16 RN16 bits per frame + the decision margin
+    mean(|result|) / |h|^2 (fm0.py:38-68).  frames (E, W) complex64."""
+    offs, span = _rn16_offsets(cfg)
+    w = frames.shape[1]
+    start = torch.clamp(index.to(torch.int64), 0, w - span)
+    pos = start[:, None] + torch.as_tensor(offs, device=frames.device)[None, :]
+    s = frames.gather(1, pos)
+    d = s[:, 0::2] - s[:, 1::2]
+    result, signs = _slice(d, h_est)
+    h2 = h_est.real ** 2 + h_est.imag ** 2
+    margin = result.abs().mean(dim=1) / torch.clamp(h2, min=1e-12)
+    return _diff_decode(signs), margin
+
+
+def epc_period_grid(cfg: ReaderConfig, n_probe: int = None):
+    """Half-period candidates (tag_decoder_impl.cc:151-166), float32 as the
+    reference computes them; native mode widens via epc_grid_frac."""
+    if n_probe is None:
+        n_probe = 2 * (cfg.epc_bits - 1)
+    if cfg.mode == "compat":
+        frac, number_steps = 0.01, 20
+    else:
+        frac, number_steps = cfg.epc_grid_frac, cfg.epc_grid_steps
+    half = np.float32(cfg.n_samples_tag_bit / 2.0)
+    if frac == 0.01:
+        span = half / np.float32(100.0)   # reference's exact f32 arithmetic
+    else:
+        span = half * np.float32(frac)
+    lo, hi = half - span, half + span
+    step = (hi - lo) / np.float32(number_steps - 1)
+    cand = lo + np.arange(number_steps, dtype=np.float32) * step
+    return cand, n_probe
+
+
+@functools.lru_cache(maxsize=32)
+def _bit_position_tables(cfg: ReaderConfig):
+    """(steps, n_bits) first/second half-bit offsets per candidate period,
+    relative to the sync index, in the reference's float32 truncation order
+    (tag_decoder_impl.cc:171-173), and the span they cover."""
+    cand, _ = epc_period_grid(cfg)
+    j = np.arange(cfg.epc_data_bits, dtype=np.float32)
+    i1 = (j[None, :] * (2.0 * cand[:, None])).astype(np.int32)
+    i2 = (j[None, :] * (2.0 * cand[:, None]) + cand[:, None]).astype(np.int32)
+    span = int(max(i1.max(), i2.max())) + 1
+    return i1.astype(np.int64), i2.astype(np.int64), span
+
+
+@functools.lru_cache(maxsize=32)
+def _energy_positions(cfg: ReaderConfig):
+    """(steps, n_probe) energy probe offsets floor(i * T_t) per candidate
+    (tag_decoder_impl.cc:157-164) and the probe extent k (fm0.py:219-235)."""
+    cand, n_probe = epc_period_grid(cfg)
+    k = int(np.floor(np.float32(n_probe - 1) * cand.max())) + 1
+    pos = (np.arange(n_probe, dtype=np.float32)[None, :]
+           * cand[:, None]).astype(np.int32)
+    return pos.astype(np.int64), k
+
+
+def _energy_starts(index: torch.Tensor, w: int, cfg: ReaderConfig):
+    """Where each frame's energy probes start (fm0.py:238-256, :300-313):
+    with room to fold the sync offsets, b0 + clip(index - b0, 0, n_off-1);
+    otherwise min(index, w - k), clamped at 0 as dynamic_slice clamps."""
+    _, k = _energy_positions(cfg)
+    n_off = cfg.sync_search
+    b0 = int(cfg.tag_preamble_bits * cfg.n_samples_tag_bit
+             + cfg.n_samples_tag_bit / 2.0)
+    if b0 + n_off - 1 + k <= w:
+        return b0 + torch.clamp(index.to(torch.int64) - b0, 0, n_off - 1)
+    return torch.clamp(torch.clamp(index.to(torch.int64), max=w - k), min=0)
+
+
+def epc_detect(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
+               h_est: torch.Tensor, cfg: ReaderConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode the EPC payload bits per frame (fm0.py:259-344, untracked).
+
+    The symbol period is the candidate with the most |frame|^2 energy at its
+    probe positions (first maximum); the bits are the differential samples at
+    that period's truncated positions, sliced coherently.  Returns
+    (bits (E, n_bits) int32, T_half (E,) float32)."""
+    dev = frames.device
+    cand, _ = epc_period_grid(cfg)
+    w = magn2.shape[1]
+    probes, _ = _energy_positions(cfg)
+    e0 = _energy_starts(index, w, cfg)
+    epos = e0[:, None, None] + torch.as_tensor(probes, device=dev)[None]
+    energy = magn2[torch.arange(magn2.shape[0], device=dev)[:, None, None],
+                   epos].sum(dim=2)                       # (E, steps)
+    t_sel = torch.argmax(energy, dim=1)
+    t_half = torch.as_tensor(cand, device=dev)[t_sel]
+
+    i1, i2, span = _bit_position_tables(cfg)
+    # dynamic_slice semantics: the start is clamped into [0, w - span].
+    sl_start = torch.clamp(index.to(torch.int64), 0, w - span)
+    p1 = sl_start[:, None] + torch.as_tensor(i1, device=dev)[t_sel]
+    p2 = sl_start[:, None] + torch.as_tensor(i2, device=dev)[t_sel]
+    d = frames.gather(1, p1) - frames.gather(1, p2)
+    _, signs = _slice(d, h_est)
+    return _diff_decode(signs), t_half

@@ -1,0 +1,107 @@
+"""Fused gate front end: boxcar FIR + decimation, |y|, and two windowed sums.
+
+Port of the Pallas TPU kernel ``gen2_rfid_tpu/kernels/gate_front.py``.  One
+pass over planar (2, N) float32 ADC-rate I/Q gives, per post-decimation
+sample k < Ny = N // decim:
+
+    y[k]      = sum_{j<T} x[k*decim - (T-1) + j]   (boxcar, zero history)
+    amp[k]    = |y[k]|
+    avgsum[k] = sum_{w<W} amp[k-w]                 (W = win_length)
+    dcsum[k]  = sum_{w<D} y[k-w]                   (D = dc_length)
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+``csrc/gate_front.cu``; on a CPU tensor it runs ``gate_front_plain``, which
+sums in the same order (taps j = 0..T-1; windows k, k-1, ..., k-w+1), so the
+two agree bit for bit.  The kernel sums the taps without multiplying by them:
+it is boxcar-only, like the Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import launches
+from ..config import ReaderConfig
+from ..dsp.filters import magnitude
+
+
+def _windowed(v: torch.Tensor, w: int) -> torch.Tensor:
+    """v[..., k] + v[..., k-1] + ... + v[..., k-w+1], zero history."""
+    ny = v.shape[-1]
+    vp = torch.cat([v.new_zeros(v.shape[:-1] + (w - 1,)), v], dim=-1)
+    out = vp[..., w - 1: w - 1 + ny]
+    for s in range(1, w):
+        out = out + vp[..., w - 1 - s: w - 1 - s + ny]
+    return out
+
+
+def gate_front_plain(x2: torch.Tensor, decim: int, n_taps: int, win: int,
+                     dcw: int) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the kernel, in the kernel's summation order."""
+    n = x2.shape[1]
+    ny = n // decim
+    xp = torch.cat([x2.new_zeros((2, n_taps - 1)), x2], dim=1)
+    y2 = x2.new_zeros((2, ny))
+    for j in range(n_taps):
+        y2 = y2 + xp[:, j: j + ny * decim: decim]
+    amp = magnitude(y2[0], y2[1])
+    return y2, amp, _windowed(amp, win), _windowed(y2, dcw)
+
+
+def _launcher():
+    from ._build import library
+
+    fn = library("gate_front").gate_front_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    return fn
+
+
+def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
+               block_y: int = 512) -> Tuple[torch.Tensor, ...]:
+    """(2, N) float32 planar I/Q -> (y2 (2, Ny), amp (Ny), avgsum (Ny),
+    dcsum2 (2, Ny)), all float32.  ``block_y``: outputs per CUDA block."""
+    if x2.dim() != 2 or x2.shape[0] != 2:
+        raise ValueError(f"gate_front takes (2, N) planar I/Q, got {tuple(x2.shape)}")
+    if x2.device.type == "cpu":
+        return gate_front_plain(x2.to(torch.float32), decim, n_taps, win, dcw)
+    if x2.device.type != "cuda":
+        raise ValueError(f"gate_front runs on cuda or cpu, not {x2.device}")
+    if x2.dtype != torch.float32 or not x2.is_contiguous():
+        raise ValueError("gate_front takes a contiguous float32 tensor")
+    n = x2.shape[1]
+    ny = n // decim
+    y2 = torch.empty((2, ny), dtype=torch.float32, device=x2.device)
+    amp = torch.empty((ny,), dtype=torch.float32, device=x2.device)
+    avgsum = torch.empty_like(amp)
+    dcsum2 = torch.empty_like(y2)
+    if ny == 0:
+        return y2, amp, avgsum, dcsum2
+    launch = _launcher()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = launch(x2.data_ptr(), n, decim, n_taps, win, dcw, block_y,
+                     y2.data_ptr(), amp.data_ptr(), avgsum.data_ptr(),
+                     dcsum2.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gate_front kernel launch failed: CUDA error {err}")
+    launches["gate_front"] += 1
+    return y2, amp, avgsum, dcsum2
+
+
+def front_taps(cfg: ReaderConfig) -> int:
+    """Boxcar length matched to half an FM0 symbol at ADC rate (25 at the
+    defaults); runtime/inventory.py::matched_taps is this many ones."""
+    return int(cfg.tag_bit_us / 2 * cfg.adc_rate / 1e6 / cfg.miller_m)
+
+
+def gate_front_for_cfg(x2: torch.Tensor, cfg: ReaderConfig, **kw):
+    return gate_front(x2, cfg.decim, front_taps(cfg), cfg.win_length,
+                      cfg.dc_length, **kw)
