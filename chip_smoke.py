@@ -6,9 +6,11 @@
 Builds the port's CUDA kernels from ``gen2_rfid_tpu_torch/csrc`` with nvcc,
 then:
 
-1. holds each kernel against its plain PyTorch version on the card, at the
-   bench shape and at ragged sizes (gate_front: every output within 2e-5 of
-   the plain version, 0 expected; gate_stack: flags exactly equal);
+0. holds the probe kernel (``x * 2 + 1``) against its plain version, bit for
+   bit, before anything else;
+1. holds each front kernel against its plain PyTorch version on the card,
+   at the bench shape and at ragged sizes (gate_front: every output within
+   2e-5 of the plain version, 0 expected; gate_stack: flags exactly equal);
 2. decodes the golden trace on CUDA: 71 queries / round 72 / 70 EPCs /
    1 unique tag / tag 0x1b read 70 times, and the card's decoded events
    equal a CPU run of the port on the same capture;
@@ -18,7 +20,25 @@ then:
 4. times each kernel and its plain version at the bench shape, beside the
    card's memory-bound time for the same bytes;
 5. breaks the bench decode down: synchronized host wall time per stage, and
-   the device's busy share and time per kernel from ``torch.profiler``.
+   the device's busy share and time per kernel from ``torch.profiler``;
+6. compat mode: the golden tuple on CUDA, its int/bool fields equal to a CPU
+   run, and the bench capture 640/640 through gate_front without gate_stack,
+   timed;
+7. ``exact_gate=True``: the gate-scan kernel against its plain version
+   (golden |y| and average, the bench shape, noise at ragged sizes, and
+   synthetic pulse trains with known triggers on word and chunk ends), golden
+   stats equal to the default gate's in both modes, the bench decode 640/640
+   through gate_scan, timed, and the kernel timed;
+8. the golden trace with ``epc_softfix=8``, ``track_channel=True``,
+   ``cancel_cw=1`` and ``cancel_cw=2``, each CUDA == CPU on the int fields;
+   the first three keep the tuple, ``cancel_cw=2`` loses every EPC as the
+   JAX package does (its second tone is the tag's own line); then the bench
+   capture with all three switches, 640/640; launch counts for each of
+   these decodes show gate_front and gate_stack ran and gate_scan did not;
+9. the gate-sums tool (``gen2_rfid_tpu_torch.tools.gate_sums_experiment``)
+   at its size: its three sum timings and errors, the pulse-count scans,
+   and the probe; then the probe's, an empty launch's and the library
+   call's times.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
@@ -38,6 +58,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 GATE_FRONT_TOL = 2e-5          # the CPU tests' tolerance against Pallas
+# Queries, final round, EPCs, unique tags, reads of tag 0x1b: the reference
+# README's golden tuple.
+GOLDEN = (71, 72, 70, 1, 70)
 
 
 class SmokeFailure(Exception):
@@ -60,31 +83,31 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps, flush=None, warmup=2, sleep_cycles=2_000_000):
-    """Median device time of fn() over reps runs, each bracketed by CUDA
-    events, after ``warmup`` untimed runs.  ``flush`` (a large buffer) is
-    overwritten before each run so the run starts with a cold L2; a spin
-    kernel then holds the stream until the host has queued the run, so host
-    launch time does not pad the reading of a function that never waits for
-    the device (a decode does wait: its reading is its wall time)."""
+def golden_tuple(st):
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+
+    return (int(st.n_queries), int(st.cur_inventory_round), int(st.n_epc_correct),
+            unique_tags(st), int(st.tag_reads[0x1B]))
+
+
+def same_as_cpu(label, cuda_run, cpu_run):
+    """Every int/bool field of a CUDA decode's DecodedEvents and
+    InventoryStats equals the CPU decode's; the float fields' largest
+    differences are logged."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(sleep_cycles)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    (st_g, dec_g), (st_c, dec_c) = cuda_run, cpu_run
+    for f in dec_g._fields:
+        a, b = getattr(dec_g, f).cpu(), getattr(dec_c, f)
+        if a.dtype in (torch.int32, torch.bool):
+            check(torch.equal(a, b), f"{label} DecodedEvents.{f}: CUDA != CPU")
+        else:
+            log(f"[{label}] DecodedEvents.{f} max|cuda-cpu| = "
+                f"{float((a - b).abs().max()):.3g}")
+    for f in st_g._fields:
+        check(torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)),
+              f"{label} InventoryStats.{f}: CUDA != CPU")
+    log(f"[{label}] CUDA decode == CPU decode on every int/bool field")
 
 
 def bound(bytes_moved, flops):
@@ -131,7 +154,7 @@ def stage_breakdown(x2, cfg, reps=5):
     log(f"[stages] sum of medians   {total:8.3f} ms")
 
 
-def device_profile(fn, reps=3, top=12):
+def device_profile(fn, reps=3, top=12, label="profile"):
     """torch.profiler over reps decodes: device time by kernel, and the
     share of the window's wall time the device was busy."""
     import torch
@@ -151,13 +174,13 @@ def device_profile(fn, reps=3, top=12):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(r[0] for r in rows)
     if not rows:
-        log("[profile] the profiler recorded no device time")
+        log(f"[{label}] the profiler recorded no device time")
         return
-    log(f"[profile] {reps} decodes: wall {wall_us / reps / 1e3:.3f} ms/decode, "
+    log(f"[{label}] {reps} decodes: wall {wall_us / reps / 1e3:.3f} ms/decode, "
         f"device busy {busy_us / reps / 1e3:.3f} ms/decode "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle)")
     for t, count, key in sorted(rows, reverse=True)[:top]:
-        log(f"[profile] {t / reps:9.1f} us/decode {count // reps:5d} calls  {key[:90]}")
+        log(f"[{label}] {t / reps:9.1f} us/decode {count // reps:5d} calls  {key[:90]}")
 
 
 def main() -> int:
@@ -176,16 +199,22 @@ def main() -> int:
         return 2
     from gen2_rfid_tpu_torch import kernels
     from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.dsp.filters import magnitude, moving_sum
     from gen2_rfid_tpu_torch.kernels import _build
     from gen2_rfid_tpu_torch.kernels.gate_front import (
-        front_taps, gate_front, gate_front_plain)
+        front_taps, gate_front, gate_front_for_cfg, gate_front_plain)
+    from gen2_rfid_tpu_torch.kernels.gate_scan import (
+        gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train)
     from gen2_rfid_tpu_torch.kernels.gate_stack import (
         gate_stack_flags, gate_stack_plain)
+    from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
     from gen2_rfid_tpu_torch.runtime.inventory import (
         decode_capture_planar, to_planar)
-    from gen2_rfid_tpu_torch.runtime.stats import format_results, unique_tags
+    from gen2_rfid_tpu_torch.runtime.stats import format_results
     from gen2_rfid_tpu_torch.sim.tag import Tag
     from gen2_rfid_tpu_torch.sim.trace import golden_trace, synthesize_inventory
+    from gen2_rfid_tpu_torch.tools import gate_sums_experiment
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
     smi = nvidia_smi()
     log(f"card: {smi}")
@@ -205,6 +234,17 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"[build:{name}] {line}")
 
+    # ---- phase 0: the execution probe, before everything else ----
+    rng = np.random.default_rng(1)
+    err_probe = 0.0
+    for shape in [(8, 128), (1,), (3, 7), (1 << 20,)]:
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        got, want = probe(x), probe_plain(x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"probe kernel != plain at {shape}")
+        err_probe = max(err_probe, float((got - want).abs().max()))
+    log("[probe] kernel == plain bit for bit at (8, 128), (1,), (3, 7), (1048576,)")
+
     cfg0 = ReaderConfig()
     decim, taps = cfg0.decim, front_taps(cfg0)
     win, dcw = cfg0.win_length, cfg0.dc_length
@@ -223,7 +263,6 @@ def main() -> int:
     # ---- phase 1: kernels against their plain versions ----
     err_front = 0.0
     err_stack = 0
-    rng = np.random.default_rng(1)
     cases = [("bench", x2_b, 512)]
     for n, blk in [(40961, 512), (9999, 64), (10240, 2048), (4099, 512), (7, 512), (3, 512)]:
         x = rng.normal(size=(2, n)).astype(np.float32)
@@ -271,23 +310,11 @@ def main() -> int:
     golden_launches = dict(kernels.launches)
     log(format_results(st_g))
     log(f"[golden] launches {golden_launches}")
-    check(int(st_g.n_queries) == 71 and int(st_g.cur_inventory_round) == 72
-          and int(st_g.n_epc_correct) == 70 and unique_tags(st_g) == 1
-          and int(st_g.tag_reads[0x1B]) == 70, "golden tuple not reproduced on CUDA")
-    check(all(v > 0 for v in golden_launches.values()),
-          "golden decode did not launch both kernels")
+    check(golden_tuple(st_g) == GOLDEN, "golden tuple not reproduced on CUDA")
+    check(golden_launches["gate_front"] and golden_launches["gate_stack"],
+          "golden decode did not launch both front kernels")
     st_c, dec_c = decode_capture_planar(x2_g, cfg_g, device="cpu")
-    for f in dec_g._fields:
-        a, b = getattr(dec_g, f).cpu(), getattr(dec_c, f)
-        if a.dtype in (torch.int32, torch.bool):
-            check(torch.equal(a, b), f"golden DecodedEvents.{f}: CUDA != CPU")
-        else:
-            log(f"[golden] DecodedEvents.{f} max|cuda-cpu| = "
-                f"{float((a - b).abs().max()):.3g}")
-    for f in st_g._fields:
-        check(torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)),
-              f"golden InventoryStats.{f}: CUDA != CPU")
-    log("[golden] CUDA decode == CPU decode on every int/bool field")
+    same_as_cpu("golden", (st_g, dec_g), (st_c, dec_c))
     x2_gd = x2_g.to(dev)
     golden_ms = cuda_ms(lambda: decode_capture_planar(x2_gd, cfg_g), 11)
     log(f"[golden] decode {golden_ms:.3f} ms for {x2_g.shape[1]} samples "
@@ -303,8 +330,8 @@ def main() -> int:
     check(int(st_b.n_epc_correct) == expected_b == 640
           and int(st_b.tag_reads[27]) == 640,
           f"bench decode: {int(st_b.n_epc_correct)} EPCs, expected {expected_b}")
-    check(all(v > 0 for v in main_launches.values()),
-          "bench decode did not launch both kernels")
+    check(main_launches["gate_front"] and main_launches["gate_stack"],
+          "bench decode did not launch both front kernels")
     bench_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_b), 11)
     log(f"[bench] decode {bench_ms:.3f} ms for {n_b} samples "
         f"({n_b / bench_ms / 1e3:.1f} Msamples/s, "
@@ -336,6 +363,162 @@ def main() -> int:
     stage_breakdown(x2_b, cfg_b)
     device_profile(lambda: decode_capture_planar(x2_b, cfg_b))
 
+    # ---- phase 6: compat mode ----
+    cfg_gc = ReaderConfig(mode="compat")
+    kernels.reset_launches()
+    run_gc = decode_capture_planar(x2_gd, cfg_gc)
+    torch.cuda.synchronize()
+    log(f"[compat golden] launches {dict(kernels.launches)}, "
+        f"tuple {golden_tuple(run_gc[0])}")
+    check(golden_tuple(run_gc[0]) == GOLDEN, "compat golden tuple not reproduced on CUDA")
+    same_as_cpu("compat golden", run_gc, decode_capture_planar(x2_g, cfg_gc, device="cpu"))
+    cfg_bc = ReaderConfig(mode="compat", max_events=1536)
+    kernels.reset_launches()
+    st_bc, _ = decode_capture_planar(x2_b, cfg_bc)
+    torch.cuda.synchronize()
+    compat_launches = dict(kernels.launches)
+    log(f"[compat bench] launches {compat_launches}")
+    check(int(st_bc.n_epc_correct) == 640 and int(st_bc.tag_reads[27]) == 640,
+          f"compat bench decode: {int(st_bc.n_epc_correct)} EPCs, expected 640")
+    check(compat_launches["gate_front"] and not compat_launches["gate_stack"],
+          "compat bench decode: gate_front must run and gate_stack must not")
+    compat_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bc), 7)
+    log(f"[compat bench] decode {compat_ms:.3f} ms for {n_b} samples "
+        f"({n_b / compat_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
+    device_profile(lambda: decode_capture_planar(x2_b, cfg_bc), top=6,
+                   label="profile compat")
+
+    # ---- phase 7: exact_gate=True through the gate-scan kernel ----
+    win_t = torch.tensor(float(win), dtype=torch.float32, device=dev)
+    npc, rn16w, epcw = cfg0.num_pulses_command, cfg0.rn16_window, cfg0.epc_window
+    cfg_args = (frac, pw_half, nt1, npc, rn16w, epcw)
+    _, amp_g, avgsum_g, _ = gate_front_for_cfg(x2_gd, cfg_g)
+    scan_cases = [("golden", amp_g, avgsum_g / win_t, cfg_args, None)]
+    for n in (40961, 9999, 4096, 4097, 1):
+        y = torch.from_numpy(rng.normal(size=(2, n)).astype(np.float32) * 0.3
+                             + np.array([[1.0], [0.5]], np.float32)).to(dev)
+        a = magnitude(y[0], y[1])
+        scan_cases.append((f"noise n={n}", a, moving_sum(a, win) / win_t, cfg_args, None))
+    # Synthetic trains with known triggers on word and chunk ends and on the
+    # last sample, windows of one sample and windows across chunk edges.
+    for n, w16, wepc in ((40961, 1, 1), (40961, 1, 37), (20481, 40, 4100),
+                         (12289, 33, 64), (4097, 5, 3), (4096, 1, 1)):
+        a, v, targets = pulse_train(n, 2, 5, 3, w16, wepc, seed=n)
+        scan_cases.append((f"pulse train n={n} windows {w16}/{wepc}", a.to(dev), v.to(dev),
+                           (0.5, 2, 5, 3, w16, wepc), targets))
+    err_scan = 0
+    for label, a, v, args, targets in scan_cases:
+        trig, pulses = gate_scan(a, v, *args)
+        want_t, want_p = gate_scan_plain(a, v, *args)
+        torch.cuda.synchronize()
+        n_bad = int((trig != want_t).sum()) + int((pulses != want_p).sum())
+        log(f"[gate_scan {label}] outputs differing: {n_bad} of {2 * a.numel()}; "
+            f"triggers {int(want_t.sum())}")
+        check(n_bad == 0, f"gate_scan differs from its plain version on {label}")
+        check(targets is None or trig.nonzero().flatten().tolist() == targets,
+              f"gate_scan missed the planned triggers on {label}")
+        err_scan = max(err_scan, int((pulses - want_p).abs().max()))
+    for mode in ("native", "compat"):
+        c = ReaderConfig(mode=mode)
+        st_e, _ = decode_capture_planar(x2_gd, c, exact_gate=True)
+        st_d, _ = decode_capture_planar(x2_gd, c)
+        for f in st_e._fields:
+            check(torch.equal(getattr(st_e, f), getattr(st_d, f)),
+                  f"{mode} golden InventoryStats.{f}: exact gate != default gate")
+        log(f"[exact golden {mode}] stats equal to the default gate's, "
+            f"tuple {golden_tuple(st_e)}")
+    kernels.reset_launches()
+    st_be, _ = decode_capture_planar(x2_b, cfg_b, exact_gate=True)
+    torch.cuda.synchronize()
+    exact_launches = dict(kernels.launches)
+    log(f"[exact bench] launches {exact_launches}")
+    check(int(st_be.n_epc_correct) == 640 and int(st_be.tag_reads[27]) == 640,
+          f"exact-gate bench decode: {int(st_be.n_epc_correct)} EPCs, expected 640")
+    check(exact_launches["gate_front"] and exact_launches["gate_scan"]
+          and not exact_launches["gate_stack"],
+          "exact-gate bench decode: gate_front and gate_scan must run, gate_stack not")
+    exact_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_b, exact_gate=True), 5)
+    log(f"[exact bench] decode {exact_ms:.3f} ms for {n_b} samples "
+        f"({n_b / exact_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
+    device_profile(lambda: decode_capture_planar(x2_b, cfg_b, exact_gate=True), top=6,
+                   label="profile exact")
+    _, amp_b, avgsum_b, _ = gate_front_for_cfg(x2_b, cfg_b)
+    avg_b = avgsum_b / win_t
+    scan_ms = cuda_ms(lambda: gate_scan_for_cfg(amp_b, avg_b, cfg_b), 5, flush)
+    got_t, got_p = gate_scan_for_cfg(amp_b, avg_b, cfg_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_t, want_p = gate_scan_plain(amp_b, avg_b, frac, pw_half, nt1, npc, rn16w, epcw)
+    torch.cuda.synchronize()
+    scan_plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bad = int((got_t != want_t).sum()) + int((got_p != want_p).sum())
+    check(n_bad == 0, "gate_scan differs from its plain version at the bench shape")
+    # Bytes: amp and avg in, trig (1 byte) and pulses_out (4) out.
+    # Operations: a multiply and two compares per sample.
+    scan_bound, scan_by = bound((4 + 4 + 1 + 4) * ny, 3 * ny)
+    log(f"[time] gate_scan kernel {scan_ms:.4f} ms, plain {scan_plain_ms:.1f} ms "
+        f"(host loop), bound {scan_bound:.4f} ms ({scan_by}); one thread walks "
+        f"the samples in order, so the bound is out of its reach")
+
+    # ---- phase 8: the optional FM0 stages on the golden trace ----
+    def native_path_run(label, x2, c):
+        """One decode with the counts set to 0 just before and read just
+        after: the native path runs both front kernels and not gate_scan."""
+        kernels.reset_launches()
+        run_o = decode_capture_planar(x2, c)
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        log(f"[{label}] launches {got}")
+        check(got["gate_front"] and got["gate_stack"] and not got["gate_scan"],
+              f"{label}: gate_front and gate_stack must run, gate_scan not")
+        return run_o
+
+    for label, c, want in (
+            ("epc_softfix=8", ReaderConfig(epc_softfix=8), GOLDEN),
+            ("track_channel", ReaderConfig(track_channel=True), GOLDEN),
+            ("cancel_cw=1", ReaderConfig(cancel_cw=1), GOLDEN),
+            # The second strongest line is the tag's own: the JAX package
+            # loses every EPC here too (tests/test_torch_fm0_stages.py).
+            ("cancel_cw=2", ReaderConfig(cancel_cw=2), (71, 72, 0, 0, 0))):
+        run_o = native_path_run(f"golden {label}", x2_gd, c)
+        check(golden_tuple(run_o[0]) == want,
+              f"golden with {label}: {golden_tuple(run_o[0])}, expected {want}")
+        same_as_cpu(f"golden {label}", run_o, decode_capture_planar(x2_g, c, device="cpu"))
+        opt_ms = cuda_ms(lambda: decode_capture_planar(x2_gd, c), 5)
+        log(f"[golden {label}] tuple {golden_tuple(run_o[0])}, decode {opt_ms:.3f} ms")
+    cfg_bo = ReaderConfig(max_events=1536, epc_softfix=8, track_channel=True, cancel_cw=1)
+    st_bo, _ = native_path_run("bench softfix+tracking+cancel_cw=1", x2_b, cfg_bo)
+    check(int(st_bo.n_epc_correct) == 640 and int(st_bo.tag_reads[27]) == 640,
+          f"bench decode with every FM0 switch: {int(st_bo.n_epc_correct)} EPCs")
+    opt_bench_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bo), 5)
+    log(f"[bench softfix+tracking+cancel_cw=1] decode {opt_bench_ms:.3f} ms for "
+        f"{n_b} samples ({n_b / opt_bench_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
+    device_profile(lambda: decode_capture_planar(x2_b, cfg_bo), top=6,
+                   label="profile switches")
+
+    # ---- phase 9: the gate-sums tool, then the probe's times ----
+    kernels.reset_launches()
+    tool = gate_sums_experiment.run(reps=10, log=lambda *a: log("[gate_sums]", *a))
+    torch.cuda.synchronize()
+    tool_launches = dict(kernels.launches)
+    log(f"[gate_sums] launches {tool_launches}")
+    check(tool["probe ok"], "the gate-sums tool's probe failed")
+    check(tool["blocked == dyadic"], "the gate-sums tool's blocked scan != doubling scan")
+    check(tool_launches["probe"] > 0, "the gate-sums tool did not launch the probe")
+    for w in gate_sums_experiment.WINS:
+        check(tool[f"err_win{w}"] <= 1e-5 * w,
+              f"conv sums off the dyadic sums by {tool[f'err_win{w}']} at W={w} (TF32?)")
+    x_tile = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32)).to(dev)
+    one = torch.ones((), device=dev)
+    probe_ms = cuda_ms(lambda: probe(x_tile), 50)
+    probe_plain_ms = cuda_ms(lambda: probe_plain(x_tile), 50)
+    probe_library_ms = cuda_ms(lambda: torch.add(one, x_tile, alpha=2.0), 50)
+    empty_ms = cuda_ms(lambda: torch.cuda._sleep(0), 50)
+    probe_bound, probe_by = bound(2 * 4 * x_tile.numel(), 2 * x_tile.numel())
+    log(f"[time] probe (8, 128) kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
+        f"torch.add(1, x, alpha=2) {probe_library_ms:.4f} ms, empty launch "
+        f"{empty_ms:.4f} ms, bound {probe_bound:.2e} ms ({probe_by})")
+
     kernel_line = {"kernels": [
         {"name": "gate_front", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
@@ -349,6 +532,18 @@ def main() -> int:
          "launches": main_launches["gate_stack"], "max_abs_err": err_stack,
          "ms": stack_ms, "plain_ms": stack_plain_ms, "bound_ms": stack_bound,
          "bound_by": stack_by, "library_ms": None},
+        {"name": "gate_scan", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
+         "replaces": "gen2_rfid_tpu/dsp/gate.py:366",
+         "launches": exact_launches["gate_scan"], "max_abs_err": err_scan,
+         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
+         "bound_by": scan_by, "library_ms": None},
+        {"name": "probe", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/probe.cu",
+         "replaces": "tools/tpu_gate_sums_experiment.py:116",
+         "launches": tool_launches["probe"], "max_abs_err": err_probe,
+         "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
+         "bound_by": probe_by, "library_ms": probe_library_ms},
     ]}
     print(json.dumps(kernel_line), flush=True)
     print(nvidia_smi(), flush=True)

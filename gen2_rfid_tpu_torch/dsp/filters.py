@@ -1,4 +1,4 @@
-"""Matched filter + decimation, the dyadic windowed sum, and |y|.
+"""Matched filter + decimation, the windowed sums, and |y|.
 
 PyTorch counterpart of ``gen2_rfid_tpu/dsp/filters.py``.  The matched filter
 keeps GNU Radio's history convention: ``ntaps-1`` zeros precede the first
@@ -27,6 +27,45 @@ def matched_filter_decimate(iq: torch.Tensor, taps, decim: int) -> torch.Tensor:
     for j in range(t):
         acc = acc + float(taps[j]) * xp[:, j: j + n_out * decim: decim]
     return torch.complex(acc[0], acc[1])
+
+
+def _overlap_blocks(x: torch.Tensor, block: int, halo: int) -> torch.Tensor:
+    """(nb, halo+block) overlapping rows of a 1-D tensor:
+    ``ext[i] = x[i*block - halo : i*block + block]``, zero outside."""
+    assert halo <= block, (halo, block)
+    n = x.shape[0]
+    nb = -(-n // block)
+    blocks = torch.cat([x, x.new_zeros(nb * block - n)]).reshape(nb, block)
+    tails = torch.cat([blocks.new_zeros((1, halo)), blocks[:-1, block - halo:]])
+    return torch.cat([tails, blocks], dim=1)
+
+
+def moving_sum(x: torch.Tensor, win: int, block: int = 8192) -> torch.Tensor:
+    """Causal moving-window sum ``out[i] = sum(x[i-win+1 .. i])``, zero
+    history: compat mode's blocked cumsum (filters.py:73-95), a running sum
+    over each overlapping (halo + block) row and the difference of two of
+    its entries.
+
+    The running sum is taken in float64 and the difference rounded once to
+    float32.  That is one definition on every device: the float64 partial
+    sums of float32 inputs are exact while a row's values span less than
+    2^15 in magnitude, and then the result is the correctly rounded window
+    sum on CPU and CUDA alike.  XLA's float32 cumsum, which the JAX package
+    runs, is neither: against this it differs by up to a few tens of float32
+    ulps of the row's running sum (tests/test_torch_compat.py)."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    if n == 0:
+        return x
+    halo = max(win, 1)
+    ext = _overlap_blocks(x, block, halo)
+    c = torch.cumsum(ext, dim=1, dtype=torch.float64)
+    ms = c[:, halo:] - c[:, halo - win: halo + block - win]
+    return ms.to(torch.float32).reshape(-1)[:n]
+
+
+def moving_sum_complex(x: torch.Tensor, win: int) -> torch.Tensor:
+    return torch.complex(moving_sum(x.real, win), moving_sum(x.imag, win))
 
 
 def boxcar_taps(n: int) -> np.ndarray:

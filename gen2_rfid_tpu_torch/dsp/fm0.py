@@ -2,12 +2,14 @@
 
 PyTorch counterpart of ``gen2_rfid_tpu/dsp/fm0.py`` (the re-design of
 ``tag_decoder_impl::tag_detection_RN16`` :114-142 and
-``tag_detection_EPC`` :145-193), batched over frames.  The JAX package
-samples through 0/+-1 selection matmuls (a TPU gather workaround); the port
-gathers the same samples.  The position tables are rebuilt here in the
-reference's float32 arithmetic: the ``span = half / 100`` branch of the
-period grid (fm0.py:174-181) and the float32 truncation order of the bit
-positions (fm0.py:189-193).
+``tag_detection_EPC`` :145-193), batched over frames, with the optional
+decision-directed channel tracking (``cfg.track_channel``) and the
+per-decision reliabilities that CRC-guided recovery reads
+(runtime/softfix.py).  The JAX package samples through 0/+-1 selection
+matmuls (a TPU gather workaround); the port gathers the same samples.  The
+position tables are rebuilt here in the reference's float32 arithmetic: the
+``span = half / 100`` branch of the period grid (fm0.py:174-181) and the
+float32 truncation order of the bit positions (fm0.py:189-193).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
+from .filters import magnitude
 
 
 def _diff_decode(signs: torch.Tensor) -> torch.Tensor:
@@ -34,34 +37,58 @@ def _slice(d: torch.Tensor, h_est: torch.Tensor):
     return result, torch.where(result > 0, 1, -1).to(torch.int32)
 
 
+def _tracking(cfg: ReaderConfig) -> bool:
+    return cfg.track_channel and cfg.mode != "compat"
+
+
 @functools.lru_cache(maxsize=32)
-def _rn16_offsets(cfg: ReaderConfig):
-    """Half-bit sample offsets round(j*T/2) of the RN16 (fm0.py:125-150) and
+def _half_bit_offsets(cfg: ReaderConfig, n_half: int):
+    """Half-bit sample offsets round(j*T/2), j < n_half (fm0.py:125-150), and
     the span the slice needs, padded to a GRANULE multiple as the reference
     pads it (the span decides where a late index is clamped)."""
     from ..runtime.frames import GRANULE
 
     half = cfg.n_samples_tag_bit / 2.0
-    offs = np.round(np.arange(cfg.rn16_half_bits) * half).astype(np.int64)
+    offs = np.round(np.arange(n_half) * half).astype(np.int64)
     span = int(offs[-1]) + GRANULE
     span = -(-span // GRANULE) * GRANULE
     return offs, span
 
 
-def rn16_detect_soft(frames: torch.Tensor, index: torch.Tensor,
-                     h_est: torch.Tensor, cfg: ReaderConfig):
-    """Decode 16 RN16 bits per frame + the decision margin
-    mean(|result|) / |h|^2 (fm0.py:38-68).  frames (E, W) complex64."""
-    offs, span = _rn16_offsets(cfg)
+def _diff_samples(frames: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig,
+                  n_half: int) -> torch.Tensor:
+    """(E, n_half/2) differential samples d_j = s[2j] - s[2j+1] at the
+    half-bit offsets past each frame's (clamped) sync index."""
+    offs, span = _half_bit_offsets(cfg, n_half)
     w = frames.shape[1]
     start = torch.clamp(index.to(torch.int64), 0, w - span)
     pos = start[:, None] + torch.as_tensor(offs, device=frames.device)[None, :]
     s = frames.gather(1, pos)
-    d = s[:, 0::2] - s[:, 1::2]
+    return s[:, 0::2] - s[:, 1::2]
+
+
+def rn16_detect_soft(frames: torch.Tensor, index: torch.Tensor,
+                     h_est: torch.Tensor, cfg: ReaderConfig):
+    """Decode 16 RN16 bits per frame + the decision margin
+    mean(|result|) / |h|^2 (fm0.py:38-68).  frames (E, W) complex64.  With
+    channel tracking the signs come from the tracked slicer; the margin
+    stays against the preamble estimate."""
+    d = _diff_samples(frames, index, cfg, cfg.rn16_half_bits)
     result, signs = _slice(d, h_est)
+    if _tracking(cfg):
+        signs, _ = _track_and_slice(d, h_est)
     h2 = h_est.real ** 2 + h_est.imag ** 2
     margin = result.abs().mean(dim=1) / torch.clamp(h2, min=1e-12)
     return _diff_decode(signs), margin
+
+
+def payload_detect(frames: torch.Tensor, index: torch.Tensor, h_est: torch.Tensor,
+                   cfg: ReaderConfig, n_bits: int) -> torch.Tensor:
+    """Decode an n-bit FM0 payload per frame with the RN16 machinery
+    (fm0.py:78-90): access-command replies such as Req_RN handles (32 bits)
+    and Read data (33+16w bits).  Plain coherent slicing, no tracking."""
+    _, signs = _slice(_diff_samples(frames, index, cfg, 2 * n_bits), h_est)
+    return _diff_decode(signs)
 
 
 def epc_period_grid(cfg: ReaderConfig, n_probe: int = None):
@@ -121,15 +148,17 @@ def _energy_starts(index: torch.Tensor, w: int, cfg: ReaderConfig):
     return torch.clamp(torch.clamp(index.to(torch.int64), max=w - k), min=0)
 
 
-def epc_detect(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
-               h_est: torch.Tensor, cfg: ReaderConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode the EPC payload bits per frame (fm0.py:259-344, untracked).
+def epc_detect_soft(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
+                    h_est: torch.Tensor, cfg: ReaderConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode the EPC payload bits per frame, with per-decision
+    reliabilities (fm0.py:259-344).
 
     The symbol period is the candidate with the most |frame|^2 energy at its
     probe positions (first maximum); the bits are the differential samples at
-    that period's truncated positions, sliced coherently.  Returns
-    (bits (E, n_bits) int32, T_half (E,) float32)."""
+    that period's truncated positions, sliced coherently (or by the tracked
+    slicer).  Returns (bits, T_half, rel (E, n_bits)) where rel[:, j] is the
+    |decision statistic| of differential sample j."""
     dev = frames.device
     cand, _ = epc_period_grid(cfg)
     w = magn2.shape[1]
@@ -147,5 +176,62 @@ def epc_detect(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
     p1 = sl_start[:, None] + torch.as_tensor(i1, device=dev)[t_sel]
     p2 = sl_start[:, None] + torch.as_tensor(i2, device=dev)[t_sel]
     d = frames.gather(1, p1) - frames.gather(1, p2)
-    _, signs = _slice(d, h_est)
-    return _diff_decode(signs), t_half
+    if _tracking(cfg):
+        signs, rel = _track_and_slice(d, h_est)
+    else:
+        result, signs = _slice(d, h_est)
+        rel = result.abs()
+    return _diff_decode(signs), t_half, rel
+
+
+def _seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right (one order on every device)."""
+    out = v[..., 0]
+    for j in range(1, v.shape[-1]):
+        out = out + v[..., j]
+    return out
+
+
+def _track_and_slice(d: torch.Tensor, h_est: torch.Tensor, seg: int = 4):
+    """Decision-directed channel tracking over frames (fm0.py:347-400).
+
+    d (E, n) differential samples are sliced in ``seg``-sample segments with
+    the running channel estimate; each segment then rotates the estimate
+    toward the decision-aligned mean of its confident samples
+    (|d|^2 > |h|^2 / 4), keeping |h|: h <- normalize(h/2 + normalize(u)/2).
+    One Python step per segment (32 for a 128-bit EPC).  The arithmetic is
+    written out in real float32 ops with sequential segment sums and
+    correctly rounded roots, so CPU and CUDA slice alike.
+
+    Returns (signs (E, n) int32 +-1, rel (E, n) float32), rel the |decision
+    statistic| against the running h."""
+    e, n = d.shape
+    pad = (-n) % seg
+    dr, di = d.real, d.imag
+    if pad:
+        dr = torch.cat([dr, dr.new_zeros((e, pad))], dim=1)
+        di = torch.cat([di, di.new_zeros((e, pad))], dim=1)
+    hr, hi = h_est.real, h_est.imag
+    signs, rels = [], []
+    for k in range(0, n + pad, seg):
+        a, b = dr[:, k: k + seg], di[:, k: k + seg]
+        r = a * hr[:, None] + b * hi[:, None]
+        s = torch.where(r > 0, 1.0, -1.0)
+        h2 = hr * hr + hi * hi
+        cf = ((a * a + b * b) > 0.25 * h2[:, None]).to(torch.float32)
+        den = _seq_sum(cf)
+        dd = torch.clamp(den, min=1.0)
+        ur = _seq_sum(a * s * cf) / dd
+        ui = _seq_sum(b * s * cf) / dd
+        mag_h = magnitude(hr, hi)
+        g = mag_h / torch.clamp(magnitude(ur, ui), min=1e-20)
+        br = 0.5 * hr + 0.5 * (ur * g)
+        bi = 0.5 * hi + 0.5 * (ui * g)
+        g = mag_h / torch.clamp(magnitude(br, bi), min=1e-20)
+        upd = den > 0.5
+        hr = torch.where(upd, br * g, hr)
+        hi = torch.where(upd, bi * g, hi)
+        signs.append(s)
+        rels.append(r.abs())
+    s_all = torch.cat(signs, dim=1)[:, :n]
+    return torch.where(s_all > 0, 1, -1).to(torch.int32), torch.cat(rels, dim=1)[:, :n]

@@ -6,7 +6,7 @@ counts nothing.  A caller that wants to show that a run went through the
 kernels calls ``reset_launches()`` before it and reads ``launches`` after.
 """
 
-launches = {"gate_front": 0, "gate_stack": 0}
+launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "probe": 0}
 
 
 def reset_launches() -> None:

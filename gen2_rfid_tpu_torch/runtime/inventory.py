@@ -1,17 +1,26 @@
 """Batch inventory decode: full pipeline + explicit round-FSM replay.
 
-PyTorch counterpart of ``gen2_rfid_tpu/runtime/inventory.py`` for the
-native FM0 path.  Every heavy stage (front end, gate, window extraction,
-sync, RN16/EPC detection, CRC) runs batched over all events at once; the
-Gen2 inventory-round state machine is then replayed over the event table,
-in closed form for well-formed tables and with the exact sequential scan
-otherwise.
+PyTorch counterpart of ``gen2_rfid_tpu/runtime/inventory.py`` for FM0,
+in native and compat mode.  Every heavy stage (front end, gate, window
+extraction, sync, RN16/EPC detection, CRC) runs batched over all events at
+once; the Gen2 inventory-round state machine is then replayed over the
+event table, in closed form for well-formed tables and with the exact
+sequential scan otherwise.
 
-``decode_capture_planar`` runs one pipeline on either device: the fused
-front end (kernels/gate_front.py) gives y, the gate-stack kernel
-(kernels/gate_stack.py) its packed flags, and ``gate_detect``,
-``decode_events`` and ``replay_inventory`` follow.  On CUDA tensors the two
-kernels launch; on CPU tensors their plain versions run.
+``decode_capture_planar`` runs one pipeline on either device, after the
+optional CW cancellation (dsp/interference.py).  The fused front end
+(kernels/gate_front.py) gives y, |y| and the windowed |y| sum; then
+
+* native mode: the gate-stack kernel (kernels/gate_stack.py) packs the gate
+  flags of y, ``gate_detect`` reads them, and ``decode_events`` decodes
+  each event's role-specialized window;
+* compat mode: ``gate_detect`` reads |y| and the average from the front
+  end, and ``decode_events`` decodes every event as both windows;
+* ``exact_gate=True``, either mode: ``gate_detect_scan`` walks the
+  reference FSM over the same |y| and average (kernels/gate_scan.py).
+
+``replay_inventory`` follows.  On CUDA tensors the kernels launch; on CPU
+tensors their plain versions run.
 """
 
 from __future__ import annotations
@@ -25,11 +34,13 @@ import torch
 from ..config import ReaderConfig
 from ..dsp import fm0, sync
 from ..dsp.filters import boxcar_taps
-from ..dsp.gate import GateEvents, gate_detect
+from ..dsp.gate import GateEvents, gate_detect, gate_detect_scan
+from ..dsp.interference import cancel_cw_planar
 from ..kernels.gate_front import front_taps, gate_front_for_cfg
 from ..kernels.gate_stack import gate_stack_for_cfg
 from ..protocol.crc import crc16_affine
 from .frames import extract_windows, gather_aligned_windows
+from .softfix import recover_epc_batch
 from .stats import N_TAG_BINS, InventoryStats
 
 
@@ -176,6 +187,21 @@ def _validate_epc(epc_bits: torch.Tensor, cfg: ReaderConfig):
     return ok, tid
 
 
+def _validate_epc_soft(epc_bits: torch.Tensor, rel: torch.Tensor, cfg: ReaderConfig):
+    """(pass, tag_id, epc_bits) with CRC-guided recovery of failed frames
+    when ``cfg.epc_softfix`` is set (inventory.py:247-264): recovered frames
+    carry their repaired bits.  Compat never recovers (the reference
+    discards CRC failures)."""
+    ok, tid = _validate_epc(epc_bits, cfg)
+    if not cfg.epc_softfix or cfg.mode == "compat":
+        return ok, tid, epc_bits
+    fixed_bits, fixed = recover_epc_batch(
+        epc_bits, rel, cfg, lambda b: _validate_epc(b, cfg))
+    merged = torch.where((fixed & ~ok)[:, None], fixed_bits, epc_bits)
+    ok2, tid2 = _validate_epc(merged, cfg)
+    return ok2, tid2, merged
+
+
 def _decode_rn16_frames(frames, cfg):
     index, h_est = sync.tag_sync(frames, cfg)
     bits, margin = fm0.rn16_detect_soft(frames, index, h_est, cfg)
@@ -184,8 +210,8 @@ def _decode_rn16_frames(frames, cfg):
 
 def _decode_epc_frames(frames, magn2, cfg):
     index, h_est = sync.tag_sync(frames, cfg)
-    bits, t_half = fm0.epc_detect(frames, magn2, index, h_est, cfg)
-    return bits, t_half, h_est
+    bits, t_half, rel = fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)
+    return bits, t_half, h_est, rel
 
 
 def _h_planes(h: torch.Tensor) -> torch.Tensor:
@@ -197,8 +223,8 @@ def _decode_events_paranoid(y, events: GateEvents, cmd, cfg) -> DecodedEvents:
     frames, magn2, rn16_fits, epc_fits = extract_windows(y, events, cfg)
     index, h_est = sync.tag_sync(frames, cfg)
     rn16_bits, margin = fm0.rn16_detect_soft(frames, index, h_est, cfg)
-    epc_bits, t_half = fm0.epc_detect(frames, magn2, index, h_est, cfg)
-    epc_pass, tag_id = _validate_epc(epc_bits, cfg)
+    epc_bits, t_half, rel = fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)
+    epc_pass, tag_id, epc_bits = _validate_epc_soft(epc_bits, rel, cfg)
     energy = magn2[:, : cfg.rn16_window].mean(dim=1)
     h2 = h_est.real ** 2 + h_est.imag ** 2
     return DecodedEvents(
@@ -273,8 +299,8 @@ def _decode_events_specialized(y, events: GateEvents, cmd, role_q, role_a,
     q_frames, q_magn2 = gather_windows(q_rows, cfg.rn16_window)
     a_frames, a_magn2 = gather_windows(a_rows, cfg.epc_window)
     q_bits, q_h, q_margin = _decode_rn16_frames(q_frames, cfg)
-    a_bits, a_thalf, a_h = _decode_epc_frames(a_frames, a_magn2, cfg)
-    a_pass, a_tid = _validate_epc(a_bits, cfg)
+    a_bits, a_thalf, a_h, a_rel = _decode_epc_frames(a_frames, a_magn2, cfg)
+    a_pass, a_tid, a_bits = _validate_epc_soft(a_bits, a_rel, cfg)
     q_energy = q_magn2.mean(dim=1)
     nv_pad = torch.cat([events.noise_var, events.noise_var.new_ones(1)])
     q_h2 = q_h.real ** 2 + q_h.imag ** 2
@@ -456,13 +482,22 @@ def replay_inventory(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     return replay_inventory_scan(dec, cfg)
 
 
-def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None
-                 ) -> Tuple[InventoryStats, DecodedEvents]:
-    """Decode one post-decimation complex I/Q block.  ``flags``: the packed
-    gate-stack flags of y, computed from y when not given."""
+def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
+                 exact_gate: bool = False, amp: torch.Tensor = None,
+                 avg: torch.Tensor = None) -> Tuple[InventoryStats, DecodedEvents]:
+    """Decode one post-decimation complex I/Q block (inventory.py:865-881).
+
+    ``flags``: native mode's packed gate-stack flags of y, computed from y
+    when not given; ``amp``/``avg``: |y| and its windowed average from the
+    front end, which compat mode and the exact gate need.  Native mode
+    decodes role-specialized windows; compat decodes every event as both
+    windows, as the reference decoder runs both branches' arithmetic."""
     _check_slice(cfg)
-    events = gate_detect(y, cfg, flags)
-    dec = decode_events(y, events, cfg, specialize=True)
+    if exact_gate:
+        events = gate_detect_scan(y, cfg, amp, avg)
+    else:
+        events = gate_detect(y, cfg, flags, amp, avg)
+    dec = decode_events(y, events, cfg, specialize=cfg.mode != "compat")
     return replay_inventory(dec, cfg), dec
 
 
@@ -472,25 +507,11 @@ def matched_taps(cfg: ReaderConfig):
     return boxcar_taps(front_taps(cfg))
 
 
-# Configurations this slice of the port does not run yet, and the ROADMAP
-# queue-1 item that brings each.
-_LATER = (
-    (lambda c: c.mode == "compat", "mode='compat' (ROADMAP queue 1: compat mode)"),
-    (lambda c: c.miller_m != 1, "miller_m != 1 (ROADMAP queue 1: Miller)"),
-    (lambda c: c.epc_softfix, "epc_softfix (ROADMAP queue 1: optional FM0 stages)"),
-    (lambda c: c.track_channel, "track_channel (ROADMAP queue 1: optional FM0 stages)"),
-    (lambda c: c.cancel_cw, "cancel_cw (ROADMAP queue 1: optional FM0 stages)"),
-)
-
-
-def _check_slice(cfg: ReaderConfig, exact_gate: bool = False) -> None:
-    if exact_gate:
+def _check_slice(cfg: ReaderConfig) -> None:
+    """Raise for the one configuration the port does not run yet."""
+    if cfg.miller_m != 1:
         raise NotImplementedError(
-            "exact_gate=True is not ported yet (ROADMAP queue 1: optional FM0 "
-            "stages, the gate_detect_scan oracle)")
-    for later, what in _LATER:
-        if later(cfg):
-            raise NotImplementedError(f"{what} is not ported yet")
+            "miller_m != 1 is not ported yet (ROADMAP queue 1: Miller)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -507,18 +528,29 @@ def resolve_device(device=None) -> torch.device:
 
 def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
                           device=None) -> Tuple[InventoryStats, DecodedEvents]:
-    """Full pipeline from a planar (2, N) float32 ADC-rate capture.
+    """Full pipeline from a planar (2, N) float32 ADC-rate capture
+    (inventory.py:890-919).
 
-    The fused front end gives y (and the amplitude sums the gate leaves
-    unused here), the gate-stack kernel the packed flags of y; gate, decode
-    and replay follow.  Runs on CUDA unless ``device`` says otherwise."""
-    _check_slice(cfg, exact_gate)
+    ``cfg.cancel_cw`` first subtracts strong CW tones.  The fused front end
+    gives y, |y| and the windowed |y| sum.  Native mode gates on the
+    gate-stack kernel's flags of y; compat mode and ``exact_gate`` gate on
+    |y| and avg = sum / win_length from the front end, which is the JAX
+    package's ``pallas_front`` path.  Runs on CUDA unless ``device`` says
+    otherwise."""
+    _check_slice(cfg)
     dev = resolve_device(device)
     x2 = torch.as_tensor(iq2, dtype=torch.float32).to(dev).contiguous()
-    y2, _, _, _ = gate_front_for_cfg(x2, cfg)
+    if cfg.cancel_cw:
+        x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()
+    y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
     y = torch.complex(y2[0], y2[1])
-    flags = gate_stack_for_cfg(y2, cfg)
-    return decode_block(y, cfg, flags)
+    if exact_gate or cfg.mode == "compat":
+        # A tensor divisor keeps the division IEEE on CUDA (PyTorch turns
+        # division by a Python scalar into a reciprocal multiply there).
+        avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
+                                    device=dev)
+        return decode_block(y, cfg, exact_gate=exact_gate, amp=amp, avg=avg)
+    return decode_block(y, cfg, gate_stack_for_cfg(y2, cfg))
 
 
 def to_planar(iq) -> torch.Tensor:

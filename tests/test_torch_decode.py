@@ -38,6 +38,7 @@ from gen2_rfid_tpu_torch.config import ReaderConfig
 from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
 from gen2_rfid_tpu_torch.runtime import inventory as inv
 from gen2_rfid_tpu_torch.runtime.stats import format_results, merge_stats, unique_tags
+from torch_compare import assert_same_decoded, assert_same_stats, port_cfg
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "golden_fm0"
@@ -49,53 +50,11 @@ ref_decode_events = jax.jit(ref_inv.decode_events,
 ref_replay = jax.jit(ref_inv.replay_inventory, static_argnames=("cfg",))
 ref_replay_scan = jax.jit(ref_inv.replay_inventory_scan, static_argnames=("cfg",))
 
-INT_FIELDS = ("index", "valid", "rn16_fits", "epc_fits", "rn16_bits", "epc_bits",
-              "epc_pass", "tag_id", "slot_state", "cmd_type")
-# Float field -> (tolerance, relative to the field's largest magnitude?).
-FLOAT_TOL = {"t_half": (1e-6, False), "h_est": (1e-4, True),
-             "rn16_energy": (1e-4, True), "rn16_margin": (1e-3, False)}
-
-
-def port_cfg(ref_cfg):
-    return carry.config_from_fields(dataclasses.asdict(ref_cfg))
-
-
 def port_y(iq, cfg):
     """The port's post-decimation y: the fused front end's plain version."""
     x2 = inv.to_planar(iq)
     y2 = gate_front_for_cfg(x2, cfg)[0]
     return torch.complex(y2[0], y2[1])
-
-
-# Decode products read from the RN16 or the EPC window.  A valid event whose
-# window runs past the capture's end decodes clamped padding (the reference's
-# gather clamps to the last row); the replay never reads those rows, so they
-# are compared only where the window fits.
-RN16_PRODUCTS = ("rn16_bits", "slot_state", "rn16_energy", "rn16_margin")
-EPC_PRODUCTS = ("epc_bits", "epc_pass", "tag_id", "t_half")
-
-
-def assert_same_decoded(got, want):
-    g = carry.decoded_to_numpy(got)
-    np.testing.assert_array_equal(g["valid"], np.asarray(want.valid))
-    rows = {f: g["rn16_fits"] | ~g["valid"] for f in RN16_PRODUCTS}
-    rows.update({f: g["epc_fits"] | ~g["valid"] for f in EPC_PRODUCTS})
-    rows["h_est"] = (g["rn16_fits"] & g["epc_fits"]) | ~g["valid"]
-    for f in INT_FIELDS:
-        keep = rows.get(f, slice(None))
-        np.testing.assert_array_equal(g[f][keep], np.asarray(getattr(want, f))[keep],
-                                      err_msg=f)
-    for f, (tol, relative) in FLOAT_TOL.items():
-        keep = rows.get(f, slice(None))
-        w = np.asarray(getattr(want, f))[keep]
-        scale = max(np.abs(w).max(initial=0.0), 1e-30) if relative else 1.0
-        np.testing.assert_allclose(g[f][keep], w, rtol=0, atol=tol * scale, err_msg=f)
-
-
-def assert_same_stats(got, want):
-    g = carry.stats_to_numpy(got)
-    for f in got._fields:
-        np.testing.assert_array_equal(g[f], np.asarray(getattr(want, f)), err_msg=f)
 
 
 def port_decoded_from(ref_dec):
@@ -333,13 +292,22 @@ def test_no_device_without_cuda_raises(monkeypatch, golden):
         inv.decode_capture_planar(inv.to_planar(tr.iq[:20000]), ReaderConfig())
 
 
-@pytest.mark.parametrize("kw,exact_gate", [
-    (dict(mode="compat"), False), (dict(miller_m=4), False), (dict(epc_softfix=8), False),
-    (dict(track_channel=True), False), (dict(cancel_cw=2), False), (dict(), True)])
-def test_configs_outside_the_slice_raise(kw, exact_gate):
+def test_configs_outside_the_slice_raise():
     iq = np.ones(20000, np.complex64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inv.decode_capture(iq, ReaderConfig(**kw), exact_gate=exact_gate, device="cpu")
+        inv.decode_capture(iq, ReaderConfig(miller_m=4), device="cpu")
+
+
+@pytest.mark.parametrize("kw,exact_gate", [
+    (dict(mode="compat"), False), (dict(epc_softfix=8), False),
+    (dict(track_channel=True), False), (dict(cancel_cw=2), False), (dict(), True)])
+def test_configs_of_the_slice_decode(kw, exact_gate):
+    """Every FM0 switch decodes; a capture that is all carrier has no events."""
+    iq = np.ones(20000, np.complex64)
+    stats, dec = inv.decode_capture(iq, ReaderConfig(max_events=16, **kw),
+                                    exact_gate=exact_gate, device="cpu")
+    assert int(stats.n_events) == 0 and not bool(dec.valid.any())
+    assert int(stats.n_queries) == 0 and int(stats.cur_inventory_round) == 1
 
 
 def test_carry_round_trips(golden):

@@ -2,8 +2,7 @@
 
 Integer outputs of the gate (event index, valid, count, pulses) must be
 equal; DC and CW noise power agree within float32 summation-order noise
-(rtol 1e-5 on |dc|-scaled values, 1e-4 on the noise power, a variance of
-differences of ~1e3-magnitude samples).
+(tests/torch_compare.py::assert_same_events).
 """
 
 import numpy as np
@@ -29,6 +28,7 @@ from gen2_rfid_tpu_torch.dsp.filters import (
 )
 from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
 from gen2_rfid_tpu_torch.runtime.inventory import matched_taps
+from torch_compare import assert_same_events
 
 ref_gate_detect = jax.jit(ref_gate.gate_detect, static_argnames=("cfg",))
 
@@ -44,19 +44,6 @@ def golden():
     cfg = ReaderConfig()
     tr = golden_trace(RefConfig())
     return cfg, tr, _front(tr.iq, cfg)
-
-
-def _assert_same_events(got, want, rtol_nv=1e-4):
-    np.testing.assert_array_equal(got.index.numpy(), np.asarray(want.index))
-    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
-    assert int(got.n_events) == int(want.n_events)
-    np.testing.assert_array_equal(got.n_pulses.numpy(), np.asarray(want.n_pulses))
-    v = got.valid.numpy()
-    dc_want = np.asarray(want.dc)[v]
-    np.testing.assert_allclose(got.dc.numpy()[v], dc_want,
-                               rtol=0, atol=1e-5 * np.abs(dc_want).max())
-    np.testing.assert_allclose(got.noise_var.numpy()[v], np.asarray(want.noise_var)[v],
-                               rtol=rtol_nv)
 
 
 # ---- filters ------------------------------------------------------------
@@ -118,7 +105,7 @@ def test_gate_detect_matches_reference_on_port_y(golden):
     got = gate.gate_detect(y, cfg)
     want = ref_gate_detect(jnp.asarray(y.numpy()), RefConfig())
     assert int(got.n_events) == 142
-    _assert_same_events(got, want)
+    assert_same_events(got, want)
 
 
 def test_gate_detect_matches_reference_default_path(golden):
@@ -127,7 +114,7 @@ def test_gate_detect_matches_reference_default_path(golden):
     cfg, tr, y = golden
     y_ref = ref_mfd(jnp.asarray(tr.iq), ref_matched_taps(RefConfig()), 5)
     want = ref_gate_detect(y_ref, RefConfig())
-    _assert_same_events(gate.gate_detect(y, cfg), want)
+    assert_same_events(gate.gate_detect(y, cfg), want)
 
 
 @pytest.mark.parametrize("max_events,n_rounds", [(16, 12), (64, 6)])
@@ -141,7 +128,7 @@ def test_gate_detect_capacity_and_drop(max_events, n_rounds):
     got = gate.gate_detect(y, cfg)
     want = ref_gate_detect(jnp.asarray(y.numpy()), RefConfig(max_events=max_events))
     assert int(got.n_events) == 2 * n_rounds
-    _assert_same_events(got, want)
+    assert_same_events(got, want)
 
 
 def test_gate_detect_empty_captures():

@@ -35,11 +35,13 @@ from gen2_rfid_tpu_torch.kernels.gate_front import (
     gate_front_for_cfg,
     gate_front_plain,
 )
+from gen2_rfid_tpu_torch.kernels.gate_scan import gate_scan_for_cfg
 from gen2_rfid_tpu_torch.kernels.gate_stack import (
     gate_stack_flags,
     gate_stack_for_cfg,
     gate_stack_plain,
 )
+from gen2_rfid_tpu_torch.kernels.probe import probe
 
 CFG = ReaderConfig()
 STACK_ARGS = (CFG.win_length, CFG.n_samples_pw // 2, CFG.n_samples_t1,
@@ -177,7 +179,11 @@ def test_cpu_tensors_count_no_launches(golden_y2):
     kernels.reset_launches()
     gate_front(torch.zeros((2, 1000)), 5, 25, 100, 48)
     gate_stack_flags(golden_y2[:, :5000].contiguous(), *STACK_ARGS)
-    assert kernels.launches == {"gate_front": 0, "gate_stack": 0}
+    amp = torch.ones(1000)
+    gate_scan_for_cfg(amp, amp, CFG)
+    probe(torch.zeros((8, 128)))
+    assert kernels.launches == {"gate_front": 0, "gate_stack": 0, "gate_scan": 0,
+                                "probe": 0}
 
 
 def test_wrappers_reject_other_devices_and_shapes():
@@ -190,6 +196,12 @@ def test_wrappers_reject_other_devices_and_shapes():
         gate_front(torch.zeros(100), 5, 25, 100, 48)
     with pytest.raises(ValueError):
         gate_stack_flags(torch.zeros((3, 100)), *STACK_ARGS)
+    with pytest.raises(ValueError):
+        gate_scan_for_cfg(meta[0], meta[0], CFG)
+    with pytest.raises(ValueError):
+        gate_scan_for_cfg(torch.zeros(100), torch.zeros(99), CFG)
+    with pytest.raises(ValueError):
+        probe(meta)
 
 
 def test_build_flags_keep_ieee_rounding():

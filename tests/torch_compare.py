@@ -1,0 +1,71 @@
+"""Comparisons of the port's outputs with the JAX package's, shared by the
+``test_torch_*`` files.
+
+Integer and bool outputs must be equal: event tables, decoded bits, CRC
+verdicts, tag ids, slot states, command types and every InventoryStats
+field.  Float outputs agree within float32 summation-order noise: t_half to
+1e-6 (a table entry), h_est and rn16_energy to 1e-4 of their largest
+magnitude, the O(1) rn16_margin to 1e-3 absolute, an event's DC to 1e-5 of
+the largest |dc| and its CW noise power to rtol 1e-4 (a variance of
+differences of ~1e3-magnitude samples).
+"""
+
+import dataclasses
+
+import numpy as np
+
+from gen2_rfid_tpu_torch import carry
+
+INT_FIELDS = ("index", "valid", "rn16_fits", "epc_fits", "rn16_bits", "epc_bits",
+              "epc_pass", "tag_id", "slot_state", "cmd_type")
+# Float field -> (tolerance, relative to the field's largest magnitude?).
+FLOAT_TOL = {"t_half": (1e-6, False), "h_est": (1e-4, True),
+             "rn16_energy": (1e-4, True), "rn16_margin": (1e-3, False)}
+
+# Decode products read from the RN16 or the EPC window.  A valid event whose
+# window runs past the capture's end decodes clamped padding (the reference's
+# gather clamps to the last row); the replay never reads those rows, so they
+# are compared only where the window fits.
+RN16_PRODUCTS = ("rn16_bits", "slot_state", "rn16_energy", "rn16_margin")
+EPC_PRODUCTS = ("epc_bits", "epc_pass", "tag_id", "t_half")
+
+
+def port_cfg(ref_cfg):
+    return carry.config_from_fields(dataclasses.asdict(ref_cfg))
+
+
+def assert_same_decoded(got, want):
+    g = carry.decoded_to_numpy(got)
+    np.testing.assert_array_equal(g["valid"], np.asarray(want.valid))
+    rows = {f: g["rn16_fits"] | ~g["valid"] for f in RN16_PRODUCTS}
+    rows.update({f: g["epc_fits"] | ~g["valid"] for f in EPC_PRODUCTS})
+    rows["h_est"] = (g["rn16_fits"] & g["epc_fits"]) | ~g["valid"]
+    for f in INT_FIELDS:
+        keep = rows.get(f, slice(None))
+        np.testing.assert_array_equal(g[f][keep], np.asarray(getattr(want, f))[keep],
+                                      err_msg=f)
+    for f, (tol, relative) in FLOAT_TOL.items():
+        keep = rows.get(f, slice(None))
+        w = np.asarray(getattr(want, f))[keep]
+        scale = max(np.abs(w).max(initial=0.0), 1e-30) if relative else 1.0
+        np.testing.assert_allclose(g[f][keep], w, rtol=0, atol=tol * scale, err_msg=f)
+
+
+def assert_same_stats(got, want):
+    g = carry.stats_to_numpy(got)
+    for f in got._fields:
+        np.testing.assert_array_equal(g[f], np.asarray(getattr(want, f)), err_msg=f)
+
+
+def assert_same_events(got, want):
+    """Gate event tables: integer fields equal, DC and noise power close."""
+    np.testing.assert_array_equal(got.index.numpy(), np.asarray(want.index))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert int(got.n_events) == int(want.n_events)
+    np.testing.assert_array_equal(got.n_pulses.numpy(), np.asarray(want.n_pulses))
+    v = got.valid.numpy()
+    dc_want = np.asarray(want.dc)[v]
+    np.testing.assert_allclose(got.dc.numpy()[v], dc_want, rtol=0,
+                               atol=1e-5 * np.abs(dc_want).max(initial=0.0))
+    np.testing.assert_allclose(got.noise_var.numpy()[v],
+                               np.asarray(want.noise_var)[v], rtol=1e-4)
