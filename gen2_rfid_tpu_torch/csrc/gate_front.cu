@@ -12,120 +12,347 @@
 // The summation orders are those of the Pallas kernel, so this kernel and the
 // plain PyTorch version (kernels/gate_front.py::gate_front_plain) agree bit
 // for bit.  Built with --fmad=false and written with __fadd_rn/__fmul_rn so no
-// product is contracted into an FMA; sqrt is the IEEE __fsqrt_rn.
+// product is contracted into an FMA; sqrt is the IEEE __fsqrt_rn.  No sum is
+// kept running with a subtraction: that would change the rounding, and compat
+// mode and the exact gate threshold on avgsum.
 //
 // Bound on an H100: memory.  The function reads 8 bytes per ADC sample and
 // writes 24 bytes per output sample; at N = 9.7 M that is 77.6 MB in and
-// 46.6 MB out, about 37 us at 3.35 TB/s.  Design: one block owns block_y
-// outputs, stages the x it needs (its slab plus a (max(W,D)-1)*decim + T-1
-// halo) in shared memory with coalesced loads, builds y and amp for the slab
-// and its halo there, then each thread sums its windows from shared memory.
-// The halo re-read (about (max(W,D)-1)/block_y of the input) is served mostly
-// by L2.  The windowed sums cost W + 2D shared-memory reads per output; that,
-// not DRAM, is what a faster version would attack (register blocking).
+// 46.6 MB out, about 37 us at 3.35 TB/s.  Summing each output's windows
+// from shared memory, one ld.shared per add, takes about 250 shared loads
+// per output, 60-70 us of shared-memory issue at the bench shape, so this
+// kernel blocks the sums in registers, and it overlaps its loads with its
+// adds:
 //
-// The Pallas kernel's polyphase transpose, 128-lane DMA padding and
-// lh = max(win, 128) halo were Mosaic constraints; here the halo follows
-// from the parameters.
+// * The outputs are cut into tiles of block_y.  One wave of blocks (as many
+//   as fit on the card) walks them, tile blockIdx.x, then + gridDim.x, ...
+//   A tile's x slab (its outputs plus a halo of max(W,D)-1 y samples,
+//   (ext-1)*decim + T ADC samples a plane) lands in shared memory by
+//   cp.async, 4 bytes a lane, so that xs[u] = x[x0 + u] whatever x0's
+//   alignment and every later shared load is a 16-byte one; samples outside
+//   the capture are zero-filled (zero history).  Two buffers: the block
+//   issues the next tile's copies, then sums this one.
+// * Each thread computes R = 4 consecutive y: it walks the union of their
+//   tap spans once, (R-1)*decim + T values instead of R*T, and adds each
+//   value to the accumulators r whose tap index j = u - r*decim lies in
+//   [0, T), in increasing j.  The y stay
+//   in registers until the block is done with the slab and are then written
+//   over it, so a buffer takes the larger of the two, not their sum.
+// * Each thread then sums R consecutive outputs' windows.  At step w,
+//   accumulator r adds amp[k0 + r - w]; the R values a step needs are a
+//   register window that shifts by one a step, so R outputs take W + R + 3
+//   loads (four at a time) instead of R*W.  The same for both dcsum planes.
+// * Stores are 16-byte, one a thread per output array.
+// * ReaderConfig's defaults (decim 5, T 25, W 100, D 48) compile with every
+//   loop bound a constant: no add is predicated, and the window loops unroll
+//   so that the shifting register window costs no moves.
+//
+// Shared loads per output fall from about 250 (4 bytes each) to about 18
+// (16 bytes each) at R = 4.  What is left is the W + 2D - 3 adds per output
+// that the fixed order needs, the tap adds, the halo's re-read and
+// recompute ((max(W,D)-1) / block_y of the y work), each block's first
+// slab, which nothing overlaps, and the last round of tiles, which only
+// some blocks have (PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int R = 4;        // consecutive outputs a thread (8 ran slower on the H100)
+constexpr int kPasses = 3;  // passes of the y loop a thread makes at most
 
-__global__ void __launch_bounds__(kThreads)
-gate_front_kernel(const float* __restrict__ x2, long long n, int decim,
-                  int n_taps, int win, int dcw, int block_y, long long ny,
-                  float* __restrict__ y2, float* __restrict__ amp,
-                  float* __restrict__ avgsum, float* __restrict__ dcsum2) {
-  extern __shared__ float smem[];
-  const int halo = max(win, dcw) - 1;                // y lookback of the sums
-  const int ext = halo + block_y;                    // staged y samples
-  const int xlen = (ext - 1) * decim + n_taps;       // staged x samples/plane
-  float* xs_re = smem;
-  float* xs_im = xs_re + xlen;
-  float* ys_re = xs_im + xlen;
-  float* ys_im = ys_re + ext;
-  float* amps = ys_im + ext;
+// Shared-memory layout of one tile's buffer, in floats.
+struct Shape {
+  int halo;   // y lookback of the sums
+  int ext;    // staged y samples: halo + block_y
+  int ngr;    // groups of R staged y samples
+  int span4;  // tap span of a group, rounded up to 4
+  int xcap;   // staged x samples per plane
+  int off;    // offset of staged y index 0, chosen so window loads are aligned
+  int ycap;   // floats per staged y plane
+};
 
-  const long long k0 = static_cast<long long>(blockIdx.x) * block_y;
-  const long long x0 = (k0 - halo) * decim - (n_taps - 1);
-  const float* xre = x2;
-  const float* xim = x2 + n;
+__host__ __device__ inline Shape shape(int decim, int n_taps, int win, int dcw,
+                                       int block_y) {
+  Shape s;
+  s.halo = (win > dcw ? win : dcw) - 1;
+  s.ext = s.halo + block_y;
+  s.ngr = (s.ext + R - 1) / R;
+  s.span4 = ((R - 1) * decim + n_taps + 3) / 4 * 4;
+  s.xcap = (s.ngr - 1) * R * decim + s.span4;      // a multiple of 4
+  // off + halo = 3 (mod 4) puts each thread's first window load on 16
+  // bytes; off >= 4 keeps the last (partly unused) load in the array.
+  s.off = 4 + ((3 - s.halo) % 4 + 4) % 4;
+  s.ycap = (s.off + s.ngr * R + 4 + 3) / 4 * 4;
+  return s;
+}
 
-  // Zero history: samples before the capture (and past its end, which no
-  // output reads) are zero.
-  for (int u = threadIdx.x; u < xlen; u += blockDim.x) {
+// One buffer holds a tile's x slab, then its y (written over the slab once
+// every thread has its y in registers).  A multiple of 4 floats.
+__host__ __device__ inline int buffer_floats(const Shape& s) {
+  const int xs = 2 * s.xcap;
+  const int ys = 3 * s.ycap;
+  return xs > ys ? xs : ys;
+}
+
+// Two buffers: the next tile's slab lands in one while the block sums the
+// other.
+__host__ __device__ inline size_t smem_bytes(const Shape& s) {
+  return 2 * static_cast<size_t>(buffer_floats(s)) * sizeof(float);
+}
+
+__host__ __device__ inline bool supported(const Shape& s) {
+  return s.ngr <= kPasses * kThreads;
+}
+
+// acc[r] = a[e0+r] + a[e0+r-1] + ... + a[e0+r-W+1], added in that order;
+// first[r] = a[e0+r].  a + e0 - 3 is 16-byte aligned (Shape::off).
+__device__ __forceinline__ void window_sums(const float* __restrict__ a, int e0, int W,
+                                            float (&acc)[R], float (&first)[R]) {
+  float v[R + 4];                  // v[m] = a[e0 - wb - 3 + m] in chunk wb
+#pragma unroll
+  for (int q = 0; q < (R + 4) / 4; ++q) {
+    const float4 f = *reinterpret_cast<const float4*>(a + e0 - 3 + 4 * q);
+    v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z; v[4 * q + 3] = f.w;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) first[r] = acc[r] = v[r + 3];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    if (k < W) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = __fadd_rn(acc[r], v[r - k + 3]);
+    }
+  }
+#pragma unroll
+  for (int wb = 4; wb < W; wb += 4) {
+#pragma unroll
+    for (int m = R + 3; m >= 4; --m) v[m] = v[m - 4];
+    const float4 f = *reinterpret_cast<const float4*>(a + e0 - wb - 3);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    if (wb + 3 < W) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = __fadd_rn(acc[r], v[r - k + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (wb + k < W) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = __fadd_rn(acc[r], v[r - k + 3]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store(float* __restrict__ dst, long long k, long long ny,
+                                      const float (&v)[R], bool vec) {
+  if (vec && k + R <= ny) {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q)
+      *reinterpret_cast<float4*>(dst + k + 4 * q) =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (k + r < ny) dst[k + r] = v[r];
+  }
+}
+
+// 4 bytes from global to shared without the registers; src_bytes 0 writes 0.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+// Issue the copies of one tile's x slab (both planes) into buf: buf[u] =
+// x_re[x0 + u], buf[xcap + u] = x_im[x0 + u], 0 outside [0, n).
+__device__ __forceinline__ void stage(float* buf, const float* __restrict__ xre,
+                                      const float* __restrict__ xim, long long x0,
+                                      long long n, int xcap) {
+  for (int u = threadIdx.x; u < xcap; u += kThreads) {
     const long long g = x0 + u;
     const bool in = g >= 0 && g < n;
-    xs_re[u] = in ? xre[g] : 0.f;
-    xs_im[u] = in ? xim[g] : 0.f;
+    const long long gs = in ? g : 0;
+    cp_async4(buf + u, xre + gs, in ? 4 : 0);
+    cp_async4(buf + xcap + u, xim + gs, in ? 4 : 0);
   }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  for (int e = threadIdx.x; e < ext; e += blockDim.x) {
-    const float* pr = xs_re + e * decim;
-    const float* pi = xs_im + e * decim;
-    float ar = 0.f;
-    float ai = 0.f;
-    for (int j = 0; j < n_taps; ++j) {
-      ar = __fadd_rn(ar, pr[j]);
-      ai = __fadd_rn(ai, pi[j]);
-    }
-    ys_re[e] = ar;
-    ys_im[e] = ai;
-    amps[e] = __fsqrt_rn(__fadd_rn(__fmul_rn(ar, ar), __fmul_rn(ai, ai)));
-  }
-  __syncthreads();
+// kDecim, kTaps, kWin, kDc: compile-time decim, T, W and D, or 0 to read
+// the runtime values.
+template <int kDecim, int kTaps, int kWin, int kDc>
+__global__ void __launch_bounds__(kThreads)
+gate_front_kernel(const float* __restrict__ x2, long long n, int decim_rt, int taps_rt,
+                  int win_rt, int dcw_rt, int block_y, long long ny, long long ntiles,
+                  float* __restrict__ y2, float* __restrict__ amp,
+                  float* __restrict__ avgsum, float* __restrict__ dcsum2) {
+  extern __shared__ __align__(16) float smem[];
+  const int decim = kDecim ? kDecim : decim_rt;
+  const int n_taps = kTaps ? kTaps : taps_rt;
+  const int win = kWin ? kWin : win_rt;
+  const int dcw = kDc ? kDc : dcw_rt;
+  const Shape s = shape(decim, n_taps, win, dcw, block_y);
+  const int buf_floats = buffer_floats(s);
+  const float* xre = x2;
+  const float* xim = x2 + n;
+  const bool vec1 = (ny & 3) == 0;                 // plane-1 outputs on 16 bytes
 
-  for (int i = threadIdx.x; i < block_y; i += blockDim.x) {
-    const long long k = k0 + i;
-    if (k >= ny) break;
-    const int e = halo + i;
-    float s = amps[e];
-    for (int w = 1; w < win; ++w) s = __fadd_rn(s, amps[e - w]);
-    float dr = ys_re[e];
-    float di = ys_im[e];
-    for (int w = 1; w < dcw; ++w) {
-      dr = __fadd_rn(dr, ys_re[e - w]);
-      di = __fadd_rn(di, ys_im[e - w]);
+  long long tile = blockIdx.x;
+  if (tile < ntiles)
+    stage(smem, xre, xim, (tile * block_y - s.halo) * decim - (n_taps - 1), n, s.xcap);
+  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    float* buf = smem + (it & 1) * buf_floats;
+    float* xs_re = buf;
+    float* xs_im = buf + s.xcap;
+    float* ys_re = buf + s.off;                    // staged y index e at ys_re[e]
+    float* ys_im = ys_re + s.ycap;
+    float* amps = ys_im + s.ycap;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // Every copy of this tile has landed, and every thread is done with the
+    // other buffer (the last tile's sums): the next tile may go there.
+    __syncthreads();
+    const long long next = tile + gridDim.x;
+    if (next < ntiles)
+      stage(smem + ((it + 1) & 1) * buf_floats, xre, xim,
+            (next * block_y - s.halo) * decim - (n_taps - 1), n, s.xcap);
+    const long long k0 = tile * block_y;
+
+    // y of R consecutive staged samples a thread, kept in registers until
+    // every thread is done with the x slab, then written over it.
+    float yr[kPasses][R];
+    float yi[kPasses][R];
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int q = threadIdx.x + pass * kThreads;
+      if (q >= s.ngr) break;
+      const float* pr = xs_re + q * R * decim;
+      const float* pi = xs_im + q * R * decim;
+#pragma unroll
+      for (int r = 0; r < R; ++r) yr[pass][r] = yi[pass][r] = 0.f;
+#pragma unroll
+      for (int u4 = 0; u4 < s.span4; u4 += 4) {
+        const float4 fr = *reinterpret_cast<const float4*>(pr + u4);
+        const float4 fi = *reinterpret_cast<const float4*>(pi + u4);
+        const float vr[4] = {fr.x, fr.y, fr.z, fr.w};
+        const float vi[4] = {fi.x, fi.y, fi.z, fi.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int j = u4 + t - r * decim;
+            if (j >= 0 && j < n_taps) {
+              yr[pass][r] = __fadd_rn(yr[pass][r], vr[t]);
+              yi[pass][r] = __fadd_rn(yi[pass][r], vi[t]);
+            }
+          }
+        }
+      }
     }
-    y2[k] = ys_re[e];
-    y2[ny + k] = ys_im[e];
-    amp[k] = amps[e];
-    avgsum[k] = s;
-    dcsum2[k] = dr;
-    dcsum2[ny + k] = di;
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int q = threadIdx.x + pass * kThreads;
+      if (q >= s.ngr) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int e = q * R + r;
+        const float ar = yr[pass][r];
+        const float ai = yi[pass][r];
+        ys_re[e] = ar;
+        ys_im[e] = ai;
+        amps[e] = __fsqrt_rn(__fadd_rn(__fmul_rn(ar, ar), __fmul_rn(ai, ai)));
+      }
+    }
+    __syncthreads();
+
+    for (int i0 = threadIdx.x * R; i0 < block_y; i0 += kThreads * R) {
+      const long long k = k0 + i0;
+      if (k >= ny) break;
+      const int e0 = s.halo + i0;
+      float acc[R];
+      float first[R];
+      window_sums(amps, e0, win, acc, first);
+      store(amp, k, ny, first, true);
+      store(avgsum, k, ny, acc, true);
+      window_sums(ys_re, e0, dcw, acc, first);
+      store(y2, k, ny, first, true);
+      store(dcsum2, k, ny, acc, true);
+      window_sums(ys_im, e0, dcw, acc, first);
+      store(y2 + ny, k, ny, first, vec1);
+      store(dcsum2 + ny, k, ny, acc, vec1);
+    }
   }
+}
+
+template <int kDecim, int kTaps, int kWin, int kDc>
+int launch(const float* x2, long long n, int decim, int n_taps, int win, int dcw,
+           int block_y, long long ny, float* y2, float* amp, float* avgsum,
+           float* dcsum2, cudaStream_t stream) {
+  const Shape shp = shape(decim, n_taps, win, dcw, block_y);
+  if (!supported(shp)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(shp);
+  auto* kernel = gate_front_kernel<kDecim, kTaps, kWin, kDc>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // One wave of persistent blocks, each walking tiles blockIdx.x,
+  // blockIdx.x + gridDim.x, ...
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                            smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long ntiles = (ny + block_y - 1) / block_y;
+  const long long wave = static_cast<long long>(per_sm) * sms;
+  const long long grid = ntiles < wave ? ntiles : wave;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      x2, n, decim, n_taps, win, dcw, block_y, ny, ntiles, y2, amp, avgsum, dcsum2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of shared memory one block takes (two buffers), or -1 when block_y
+// is too large (the y of a slab and its halo must fit kPasses passes of the
+// block's threads); the wrapper checks it against the card's limit.
+extern "C" long long gate_front_smem_bytes(int decim, int n_taps, int win, int dcw,
+                                           int block_y) {
+  const Shape s = shape(decim, n_taps, win, dcw, block_y);
+  return supported(s) ? static_cast<long long>(smem_bytes(s)) : -1;
+}
+
 // x2: (2, n) float32 planar, contiguous.  Outputs: y2 (2, ny), amp (ny),
-// avgsum (ny), dcsum2 (2, ny) with ny = n / decim.  Returns a cudaError_t
-// (0 on success); launches nothing when ny == 0.
+// avgsum (ny), dcsum2 (2, ny) with ny = n / decim, each 16-byte aligned.
+// block_y: outputs per tile, a multiple of 4.  Returns a cudaError_t (0 on
+// success); launches nothing when ny == 0.
 extern "C" int gate_front_launch(const float* x2, long long n, int decim,
                                  int n_taps, int win, int dcw, int block_y,
                                  float* y2, float* amp, float* avgsum,
                                  float* dcsum2, void* stream) {
   const long long ny = n / decim;
   if (ny <= 0) return 0;
-  if (decim < 1 || n_taps < 1 || win < 1 || dcw < 1 || block_y < 1)
+  if (decim < 1 || n_taps < 1 || win < 1 || dcw < 1 || block_y < 1 || block_y % R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int halo = (win > dcw ? win : dcw) - 1;
-  const long long ext = halo + block_y;
-  const long long xlen = (ext - 1) * decim + n_taps;
-  const size_t smem = static_cast<size_t>(2 * xlen + 3 * ext) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gate_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long grid = (ny + block_y - 1) / block_y;
-  gate_front_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp, avgsum, dcsum2);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // ReaderConfig's defaults compile with every loop bound a constant.
+  const bool dflt = decim == 5 && n_taps == 25 && win == 100 && dcw == 48;
+  return dflt ? launch<5, 25, 100, 48>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
+                                       avgsum, dcsum2, s)
+              : launch<0, 0, 0, 0>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
+                                   avgsum, dcsum2, s);
 }

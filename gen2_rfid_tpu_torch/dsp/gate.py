@@ -232,11 +232,18 @@ def gate_detect_scan(y: torch.Tensor, cfg: ReaderConfig, amp: torch.Tensor,
     per-sample FSM, which freezes detection while the gate is open and seeks
     RN16 and EPC windows in strict alternation.  ``amp``/``avg`` as for
     compat's ``gate_detect``; the FSM runs in the gate-scan kernel on CUDA
-    and its plain version on the CPU.  Invalid slots hold index n-1."""
-    n = y.shape[0]
-    i32 = torch.int32
+    and its plain version on the CPU."""
     _check_amp_avg(amp, avg, "gate_detect_scan")
     trig, pulses_out = gate_scan_for_cfg(amp, avg, cfg)
+    return events_from_scan(y, trig, pulses_out, cfg)
+
+
+def events_from_scan(y: torch.Tensor, trig: torch.Tensor, pulses_out: torch.Tensor,
+                     cfg: ReaderConfig) -> GateEvents:
+    """The event table from the FSM's per-sample outputs (gate.py:369-381).
+    Invalid slots hold index n-1."""
+    n = y.shape[0]
+    i32 = torch.int32
     arange = torch.arange(n, dtype=i32, device=y.device)
     ev = torch.sort(torch.where(trig, arange, n)).values[: cfg.max_events]
     ev_c = torch.clamp(ev, max=n - 1)

@@ -10,10 +10,13 @@ sample k < Ny = N // decim:
     dcsum[k]  = sum_{w<D} y[k-w]                   (D = dc_length)
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/gate_front.cu``; on a CPU tensor it runs ``gate_front_plain``, which
-sums in the same order (taps j = 0..T-1; windows k, k-1, ..., k-w+1), so the
-two agree bit for bit.  The kernel sums the taps without multiplying by them:
-it is boxcar-only, like the Pallas kernel.
+``csrc/gate_front.cu`` (one wave of blocks walks tiles of ``block_y``
+outputs, loading the next tile's slab while it sums this one; each thread
+sums 4 consecutive outputs from a register window); on a CPU tensor it
+runs ``gate_front_plain``, which sums in the same order (taps j = 0..T-1;
+windows k, k-1, ..., k-w+1), so the two agree bit for bit.  The kernel
+sums the taps without multiplying by them: it is boxcar-only, like the
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -51,23 +54,33 @@ def gate_front_plain(x2: torch.Tensor, decim: int, n_taps: int, win: int,
     return y2, amp, _windowed(amp, win), _windowed(y2, dcw)
 
 
-def _launcher():
+# Outputs per tile, chosen on the H100 by chip_smoke.py's sweep (PERF.md).
+# At 924 a tile's y groups (4 outputs each) fill one pass of a block's 256
+# threads.
+BLOCK_Y = 924
+SMEM_LIMIT = 232448          # bytes of shared memory a block may take on Hopper
+
+
+def _lib():
     from ._build import library
 
-    fn = library("gate_front").gate_front_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    lib = library("gate_front")
+    lib.gate_front_launch.restype = ctypes.c_int
+    lib.gate_front_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    return fn
+    lib.gate_front_smem_bytes.restype = ctypes.c_longlong
+    lib.gate_front_smem_bytes.argtypes = [ctypes.c_int] * 5
+    return lib
 
 
 def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
-               block_y: int = 512) -> Tuple[torch.Tensor, ...]:
+               block_y: int = BLOCK_Y) -> Tuple[torch.Tensor, ...]:
     """(2, N) float32 planar I/Q -> (y2 (2, Ny), amp (Ny), avgsum (Ny),
-    dcsum2 (2, Ny)), all float32.  ``block_y``: outputs per CUDA block."""
+    dcsum2 (2, Ny)), all float32.  ``block_y``: outputs per tile (what a
+    CUDA block sums at a time), a multiple of 4."""
     if x2.dim() != 2 or x2.shape[0] != 2:
         raise ValueError(f"gate_front takes (2, N) planar I/Q, got {tuple(x2.shape)}")
     if x2.device.type == "cpu":
@@ -76,6 +89,8 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
         raise ValueError(f"gate_front runs on cuda or cpu, not {x2.device}")
     if x2.dtype != torch.float32 or not x2.is_contiguous():
         raise ValueError("gate_front takes a contiguous float32 tensor")
+    if block_y < 1 or block_y % 4:
+        raise ValueError(f"gate_front: block_y={block_y} must be a positive multiple of 4")
     n = x2.shape[1]
     ny = n // decim
     y2 = torch.empty((2, ny), dtype=torch.float32, device=x2.device)
@@ -84,12 +99,19 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
     dcsum2 = torch.empty_like(y2)
     if ny == 0:
         return y2, amp, avgsum, dcsum2
-    launch = _launcher()
+    lib = _lib()
+    smem = lib.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y)
+    if smem < 0:
+        raise ValueError(f"gate_front: block_y={block_y} is too large: a thread keeps "
+                         f"at most 3 groups of 4 y")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gate_front: block_y={block_y} needs {smem} bytes of shared "
+                         f"memory a block, over the card's {SMEM_LIMIT}")
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = launch(x2.data_ptr(), n, decim, n_taps, win, dcw, block_y,
-                     y2.data_ptr(), amp.data_ptr(), avgsum.data_ptr(),
-                     dcsum2.data_ptr(), stream)
+        err = lib.gate_front_launch(x2.data_ptr(), n, decim, n_taps, win, dcw, block_y,
+                                    y2.data_ptr(), amp.data_ptr(), avgsum.data_ptr(),
+                                    dcsum2.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gate_front kernel launch failed: CUDA error {err}")
     launches["gate_front"] += 1

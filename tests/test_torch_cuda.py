@@ -15,9 +15,9 @@ import torch
 
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
-from gen2_rfid_tpu_torch.kernels.gate_front import gate_front, gate_front_plain
+from gen2_rfid_tpu_torch.kernels.gate_front import BLOCK_Y, gate_front, gate_front_plain
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
-    gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train)
+    dense_edges, gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train, random_runs)
 from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
 from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
 
@@ -50,6 +50,57 @@ def test_gate_front_kernel_matches_plain(cuda, n, block_y):
     assert kernels.launches["gate_front"] == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# N giving ny % 4 = 1..3 (the thread's 4 outputs), ny < 4 and ny < the
+# 99-sample halo.
+FRONT_LENGTHS = [5 * (16000 + m) + m % 5 for m in range(1, 4)] + [5 * 3 + 2, 5 * 50 + 4]
+
+
+@pytest.mark.parametrize("block_y", [BLOCK_Y, 512, 1024, 64])
+def test_gate_front_kernel_bit_equal_at_remainders(cuda, block_y):
+    """Every ragged end of the register blocking, bit for bit."""
+    for n in FRONT_LENGTHS:
+        x2 = torch.from_numpy(_noise(n, n)).to(cuda)
+        got = gate_front(x2, 5, 25, 100, 48, block_y=block_y)
+        want = gate_front_plain(x2, 5, 25, 100, 48)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (n, block_y)
+
+
+@pytest.mark.parametrize("decim,taps,win,dcw", [(3, 7, 10, 13), (2, 9, 5, 3), (1, 1, 1, 1),
+                                                (5, 25, 100, 47)])
+def test_gate_front_kernel_other_shapes(cuda, decim, taps, win, dcw):
+    """Other decimations, taps and windows than ReaderConfig's (the kernel
+    compiled with runtime loop bounds), bit for bit."""
+    x2 = torch.from_numpy(_noise(30001, decim)).to(cuda)
+    got = gate_front(x2, decim, taps, win, dcw, block_y=256)
+    want = gate_front_plain(x2, decim, taps, win, dcw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_gate_front_kernel_on_unaligned_input(cuda):
+    """x2 starting 4 bytes past a 16-byte boundary, with an odd N."""
+    n = 40963
+    flat = torch.empty(2 * n + 1, device=cuda)[1:]
+    x2 = flat.view(2, n).copy_(torch.from_numpy(_noise(n, 5)))
+    assert x2.data_ptr() % 16 == 4
+    got = gate_front(x2, 5, 25, 100, 48)
+    want = gate_front_plain(x2, 5, 25, 100, 48)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_gate_front_kernel_rejects_bad_blocking(cuda):
+    x2 = torch.zeros((2, 1000), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        gate_front(x2, 5, 25, 100, 48, block_y=514)
+    with pytest.raises(ValueError, match="too large"):
+        gate_front(x2, 5, 25, 100, 48, block_y=4096)
 
 
 @pytest.mark.parametrize("n,block", [(40961, 1024), (9999, 256), (10240, 4096), (150, 1024)])
@@ -100,6 +151,39 @@ def test_gate_scan_kernel_on_pulse_trains(cuda, n, rn16w, epcw):
     want_trig, want_pulses = gate_scan_plain(amp, avg, *args)
     assert trig.cpu().nonzero().flatten().tolist() == targets
     assert torch.equal(trig.cpu(), want_trig)
+    assert torch.equal(pulses.cpu(), want_pulses)
+
+
+@pytest.mark.parametrize("n", [1_940_860, 100_003, 1025, 33, 1])
+def test_gate_scan_kernel_on_dense_edges(cuda, n):
+    """An edge about every other sample (the walk's worst case), at the bench
+    length and at lengths that are not multiples of 32 or 1024; the second
+    set of arguments triggers often."""
+    amp, avg = dense_edges(n, seed=n)
+    for args in ((CFG.thresh_fraction, 2, 96, 5, 250, 1384), (0.75, 0, 0, 0, 1, 3)):
+        trig, pulses = gate_scan(amp.to(cuda), avg.to(cuda), *args)
+        want_trig, want_pulses = gate_scan_plain(amp, avg, *args)
+        assert torch.equal(trig.cpu(), want_trig), args
+        assert torch.equal(pulses.cpu(), want_pulses), args
+
+
+def test_gate_scan_kernel_on_random_runs(cuda):
+    """Frequent triggers, resuming after windows that end in every state."""
+    for seed in range(40):
+        amp, avg, args = random_runs(seed)
+        trig, pulses = gate_scan(amp.to(cuda), avg.to(cuda), *args)
+        want_trig, want_pulses = gate_scan_plain(amp, avg, *args)
+        assert torch.equal(trig.cpu(), want_trig), seed
+        assert torch.equal(pulses.cpu(), want_pulses), seed
+
+
+@pytest.mark.parametrize("n", [5000, 1])
+def test_gate_scan_kernel_on_ties(cuda, n):
+    """amp equal to its threshold everywhere: no edge, no trigger."""
+    amp = torch.ones(n)
+    trig, pulses = gate_scan_for_cfg(amp.to(cuda), (amp / CFG.thresh_fraction).to(cuda), CFG)
+    want_trig, want_pulses = gate_scan_for_cfg(amp, amp / CFG.thresh_fraction, CFG)
+    assert torch.equal(trig.cpu(), want_trig) and not bool(want_trig.any())
     assert torch.equal(pulses.cpu(), want_pulses)
 
 
