@@ -12,18 +12,32 @@ then:
    gate_front bit for bit at the bench shape, on noise and at every ragged
    end of its register blocking (ny % R = 1..R-1, ny < R, ny below the
    halo) for three blockings, and on an input 4 bytes past a 16-byte
-   boundary; gate_stack's flags exactly equal;
+   boundary; gate_stack's flags exactly equal on the bench y, noise, every
+   input its CPU model is held to (``kernels/gate_stack.py::stream_cases``:
+   edge lengths, run boundaries, ties, tiny and infinite samples, and the
+   blf640 and 160 kHz widths, which run its shared-memory general kernel)
+   and bench-size lengths on a run boundary and one past it, after the
+   stream's fast root and division are held to the IEEE ones on every float
+   of their range;
 2. decodes the golden trace on CUDA: 71 queries / round 72 / 70 EPCs /
    1 unique tag / tag 0x1b read 70 times, and the card's decoded events
    equal a CPU run of the port on the same capture;
 3. decodes the bench-size capture (80 rounds x 8 tiles, 9.7 M samples,
    max_events=1536): 640 of 640 EPCs, with launch counts showing that the
    decode went through both kernels; times it with CUDA events;
-4. sweeps gate_front's tile (block_y outputs) and prints the fastest, then
-   times each kernel and its plain version at the bench shape, beside the
-   card's memory-bound time for the same bytes, and gate_front once more
-   with a dc window of 47, which runs the kernel built with runtime loop
-   bounds (ReaderConfig's widths compile as constants);
+4. sweeps gate_front's tile (block_y outputs) and gate_stack's run (words a
+   warp streams, at the bench and golden shapes) and prints the fastest,
+   then times each kernel and its plain version at the bench shape, beside
+   the card's memory-bound time for the same bytes, and gate_front once
+   more with a dc window of 47, which runs the kernel built with runtime
+   loop bounds (ReaderConfig's widths compile as constants); gate_stack
+   also with its data left in L2 (no flush), and at the blf640 widths on
+   a bench-size capture (its general kernel, checked there too).  Every
+   kernel is timed under both flushes of ``utils/timing.py::cuda_ms``:
+   written (L2 left full of dirty lines, the earlier yardstick) and read (L2
+   left clean); the kernels line gives the written times in ``ms``,
+   ``plain_ms`` and ``library_ms`` and the read ones in ``ms_read``,
+   ``plain_ms_read`` and ``library_ms_read``;
 5. breaks the bench decode down: synchronized host wall time per stage, and
    the device's busy share and time per kernel from ``torch.profiler``;
 6. compat mode: the golden tuple on CUDA, its int/bool fields equal to a CPU
@@ -213,7 +227,8 @@ def main() -> int:
         dense_edges, gate_scan, gate_scan_edges_plain, gate_scan_for_cfg,
         gate_scan_plain, pulse_train, random_runs)
     from gen2_rfid_tpu_torch.kernels.gate_stack import (
-        gate_stack_flags, gate_stack_plain)
+        BLF640, burst_capture, check_arith, gate_stack_flags, gate_stack_plain,
+        gate_stack_shape, stream_cases)
     from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
     from gen2_rfid_tpu_torch.runtime.inventory import (
         decode_capture_planar, to_planar)
@@ -263,6 +278,7 @@ def main() -> int:
     reps_tile = 8
     x2_b = to_planar(np.concatenate([tr_b.iq] * reps_tile)).to(dev)
     n_b = x2_b.shape[1]
+    ny_b = n_b // decim
     expected_b = tr_b.expected_epc_pass * reps_tile
     log(f"[bench capture] N={n_b} samples, Ny={n_b // decim}, "
         f"expected EPCs {expected_b}")
@@ -300,18 +316,36 @@ def main() -> int:
         err_front = max(err_front, *diffs)
         if label == "bench":
             y2_bench = got[0]
+    # gate_stack: flags exactly equal (run 0: the automatic run) on the bench
+    # y, noise, every input the CPU model is held to, bench-size lengths on a
+    # run boundary and one past it; the blf640 and 160 kHz widths among the
+    # model's inputs run the general kernel.
+    arith = check_arith()
+    log(f"[gate_stack arithmetic] the stream's fast sqrt and division by 100 against "
+        f"__fsqrt_rn / __fdiv_rn on every float of their range (0, [2^-100, FLT_MAX]): "
+        f"{arith}")
+    check(arith["sqrt_differs"] == 0 and arith["div_differs"] == 0,
+          "the stream kernel's root or division is not the IEEE one")
     err_stack = 0
-    stack_cases = [("bench y", y2_bench, 1024)]
-    for n, blk in [(40961, 1024), (9999, 256), (10240, 4096), (150, 1024), (1, 1024)]:
+    stack_geo = (win, pw_half, nt1, frac)
+    stack_cases = [("bench y", y2_bench, stack_geo, 0)]
+    for n, run in [(40961, 32), (9999, 8), (10240, 128), (150, 0), (1, 0)]:
         y = rng.normal(size=(2, n)).astype(np.float32)
-        stack_cases.append((f"noise n={n}", torch.from_numpy(y).to(dev), blk))
-    for label, y2, blk in stack_cases:
-        got = gate_stack_flags(y2, win, pw_half, nt1, frac, block=blk)
-        want = gate_stack_plain(y2, win, pw_half, nt1, frac)
+        stack_cases.append((f"noise n={n}", torch.from_numpy(y).to(dev), stack_geo, run))
+    stack_cases += [(label, y2.to(dev), geo, run) for label, y2, geo, run in stream_cases()]
+    run_b = gate_stack_shape(ny_b, win, pw_half, nt1)["run"]
+    for ny_r in (32 * run_b * 2000, 32 * run_b * 2000 + 1):
+        stack_cases.append((f"bursts ny={ny_r} (run boundary)", burst_capture(ny_r, 3).to(dev),
+                            stack_geo, 0))
+    y2_blf = burst_capture(ny_b, 5).to(dev)
+    stack_cases.append(("blf640 bursts at the bench Ny", y2_blf, BLF640, 0))
+    for label, y2, geo, run in stack_cases:
+        want = gate_stack_plain(y2, *geo)
+        got = gate_stack_flags(y2, *geo, run=run)
         torch.cuda.synchronize()
         n_bad = int((got != want).sum())
-        log(f"[gate_stack {label} block={blk}] flags differing: {n_bad} of "
-            f"{got.numel()}; set bits {int((want != 0).sum())}")
+        log(f"[gate_stack {label} run={run}] flags differing: {n_bad} of {got.numel()}; "
+            f"set bits {int((want != 0).sum())}")
         check(n_bad == 0, f"gate_stack flags differ from the plain version on {label}")
         if got.numel():
             err_stack = max(err_stack, int((got - want).abs().max()))
@@ -354,26 +388,61 @@ def main() -> int:
         f"{expected_b / bench_ms * 1e3:.0f} EPC/s)")
 
     # ---- phase 4: per-kernel time at the bench shape ----
-    ny = n_b // decim
+    # Every kernel is timed under both flushes of cuda_ms: "write" (zero
+    # the 256 MB buffer: L2 left full of dirty lines) and "read" (sum it:
+    # L2 left clean).
+    ny = ny_b
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+
+    def both(fn, reps):
+        return {by: cuda_ms(fn, reps, flush, flush_by=by) for by in ("write", "read")}
+
+    def fmt(t):
+        return f"{t['write']:.4f} (write) / {t['read']:.4f} (read) ms"
+
     # The tile, by measurement: sizes where a tile's groups of 4 y fill
     # whole passes of a block's 256 threads (924, 1948) beside powers of 2.
     sweep = {}
     for blk in (512, 768, 924, 1024, 1948):
-        sweep[blk] = cuda_ms(
-            lambda blk=blk: gate_front(x2_b, decim, taps, win, dcw, block_y=blk), 20, flush)
-        log(f"[gate_front sweep] block_y={blk}: {sweep[blk]:.4f} ms")
+        sweep[blk] = cuda_ms(lambda blk=blk: gate_front(x2_b, decim, taps, win, dcw, block_y=blk),
+                             20, flush, flush_by="read")
+        log(f"[gate_front sweep] block_y={blk}: {sweep[blk]:.4f} ms (read flush)")
     best = min(sweep, key=sweep.get)
     log(f"[gate_front sweep] fastest block_y={best} ({sweep[best]:.4f} ms); "
         f"the wrapper's default block_y={BLOCK_Y} ({sweep[BLOCK_Y]:.4f} ms)")
-    front_ms = cuda_ms(lambda: gate_front(x2_b, decim, taps, win, dcw), 20, flush)
+    front_t = both(lambda: gate_front(x2_b, decim, taps, win, dcw), 20)
     # A dc window of 47 (one add fewer a plane and output, the same halo)
     # runs the kernel built with runtime loop bounds: what a configuration
     # other than ReaderConfig's widths pays.
-    front_rt_ms = cuda_ms(lambda: gate_front(x2_b, decim, taps, win, dcw - 1), 20, flush)
-    front_plain_ms = cuda_ms(lambda: gate_front_plain(x2_b, decim, taps, win, dcw), 5, flush)
-    stack_ms = cuda_ms(lambda: gate_stack_flags(y2_bench, win, pw_half, nt1, frac), 20, flush)
-    stack_plain_ms = cuda_ms(lambda: gate_stack_plain(y2_bench, win, pw_half, nt1, frac), 5, flush)
+    front_rt_t = both(lambda: gate_front(x2_b, decim, taps, win, dcw - 1), 20)
+    front_plain_t = both(lambda: gate_front_plain(x2_b, decim, taps, win, dcw), 5)
+    # gate_stack: the warp stream at its automatic run, its run swept at the
+    # bench and golden shapes, and the general kernel (the shared-memory
+    # kernel that other widths take) at the blf640 widths.
+    y2_gold = gate_front_for_cfg(x2_g.to(dev), cfg_g)[0]
+    for label, y2s, geo in (("bench", y2_bench, stack_geo), ("golden", y2_gold, stack_geo),
+                            ("blf640 bursts", y2_blf, BLF640)):
+        shp = gate_stack_shape(y2s.shape[1], *geo[:3])
+        waves = shp["grid"] / (shp["blocks_per_sm"] * shp["sms"])
+        log(f"[gate_stack shape] {label} Ny={y2s.shape[1]} widths {geo[:3]}: {shp}; "
+            f"{waves:.2f} waves, {shp['blocks_per_sm'] * shp['threads'] // 32} "
+            f"resident warps an SM of 64")
+        if geo != stack_geo:
+            continue
+        runs = {}
+        for run in (5, 13, 21, 29, 37, 53, 61, 125):
+            runs[run] = cuda_ms(lambda run=run: gate_stack_flags(y2s, *stack_geo, run=run), 20,
+                                flush, flush_by="read")
+        log(f"[gate_stack run sweep] {label}: " + ", ".join(
+            f"run={r}: {t:.4f}" for r, t in runs.items()) + " ms (read flush); "
+            f"fastest run={min(runs, key=runs.get)}")
+    stack_t = both(lambda: gate_stack_flags(y2_bench, *stack_geo), 20)
+    # No flush: the 23.3 MB the kernel moves stay in the 50 MB L2, so what
+    # this saves against the read flush is what DRAM costs it.
+    stack_warm_ms = cuda_ms(lambda: gate_stack_flags(y2_bench, *stack_geo), 20)
+    stack_gold_t = both(lambda: gate_stack_flags(y2_gold, *stack_geo), 20)
+    stack_blf_t = both(lambda: gate_stack_flags(y2_blf, *BLF640), 20)
+    stack_plain_t = both(lambda: gate_stack_plain(y2_bench, *stack_geo), 5)
     # Bytes: each input read once, each output written once.  Operations:
     # float adds/multiplies per output (taps, |y|, the window sums; the
     # dyadic levels, the combine, the threshold).
@@ -381,14 +450,18 @@ def main() -> int:
         4 * (2 * n_b) + 4 * (6 * ny),
         ny * (2 * taps + 3 + 1 + (win - 1) + 2 * (dcw - 1)))
     nlev = win.bit_length()
+    stack_bytes = 4 * (2 * ny) + 4 * ny
     stack_bound, stack_by = bound(
-        4 * (2 * ny) + 4 * ny,
-        ny * (3 + 1 + (nlev - 1) + (bin(win).count("1") - 1) + 2))
-    log(f"[time] gate_front kernel {front_ms:.4f} ms, plain {front_plain_ms:.4f} ms, "
+        stack_bytes, ny * (3 + 1 + (nlev - 1) + (bin(win).count("1") - 1) + 2))
+    log(f"[time] gate_front kernel {fmt(front_t)}, plain {fmt(front_plain_t)}, "
         f"bound {front_bound:.4f} ms ({front_by}); runtime loop bounds (dc window "
-        f"{dcw - 1}) {front_rt_ms:.4f} ms")
-    log(f"[time] gate_stack kernel {stack_ms:.4f} ms, plain {stack_plain_ms:.4f} ms, "
-        f"bound {stack_bound:.4f} ms ({stack_by})")
+        f"{dcw - 1}) {fmt(front_rt_t)}")
+    log(f"[time] gate_stack stream kernel {fmt(stack_t)}, {stack_warm_ms:.4f} ms with its "
+        f"data in L2 (no flush), plain {fmt(stack_plain_t)}, bound {stack_bound:.4f} ms "
+        f"({stack_by}); achieved {stack_bytes / stack_t['read'] / 1e6:.0f} GB/s (read flush)")
+    log(f"[time] gate_stack general kernel at the blf640 widths, Ny={ny}: {fmt(stack_blf_t)}, "
+        f"bound {stack_bound:.4f} ms (the same bytes)")
+    log(f"[time] gate_stack at golden Ny={y2_gold.shape[1]}: stream {fmt(stack_gold_t)}")
 
     # ---- phase 5: where the bench decode's time goes ----
     stage_breakdown(x2_b, cfg_b)
@@ -490,7 +563,7 @@ def main() -> int:
                    label="profile exact")
     _, amp_b, avgsum_b, _ = gate_front_for_cfg(x2_b, cfg_b)
     avg_b = avgsum_b / win_t
-    scan_ms = cuda_ms(lambda: gate_scan_for_cfg(amp_b, avg_b, cfg_b), 5, flush)
+    scan_t = both(lambda: gate_scan_for_cfg(amp_b, avg_b, cfg_b), 5)
     got_t, got_p = gate_scan_for_cfg(amp_b, avg_b, cfg_b)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -502,7 +575,7 @@ def main() -> int:
     # Bytes: amp and avg in, trig (1 byte) and pulses_out (4) out.
     # Operations: a multiply and two compares per sample.
     scan_bound, scan_by = bound((4 + 4 + 1 + 4) * ny, 3 * ny)
-    log(f"[time] gate_scan kernel {scan_ms:.4f} ms, plain {scan_plain_ms:.1f} ms "
+    log(f"[time] gate_scan kernel {fmt(scan_t)}, plain {scan_plain_ms:.1f} ms "
         f"(host loop), bound {scan_bound:.4f} ms ({scan_by})")
     # The walk's serial steps (one per edge or trigger), from the kernel's
     # Python model, which must give the plain version's outputs too.
@@ -522,8 +595,8 @@ def main() -> int:
     torch.cuda.synchronize()
     n_bad = int((got_t != want_t).sum()) + int((got_p != want_p).sum())
     check(n_bad == 0, "gate_scan differs from its plain version on bench-size dense edges")
-    scan_dense_ms = cuda_ms(lambda: gate_scan_for_cfg(amp_d, avg_d, cfg_b), 5, flush)
-    log(f"[time] gate_scan on dense edges, Ny={ny}: kernel {scan_dense_ms:.4f} ms for "
+    scan_dense_t = both(lambda: gate_scan_for_cfg(amp_d, avg_d, cfg_b), 5)
+    log(f"[time] gate_scan on dense edges, Ny={ny}: kernel {fmt(scan_dense_t)} for "
         f"{steps_d} serial steps; kernel == plain")
 
     # ---- phase 8: the optional FM0 stages on the golden trace ----
@@ -576,40 +649,48 @@ def main() -> int:
               f"conv sums off the dyadic sums by {tool[f'err_win{w}']} at W={w} (TF32?)")
     x_tile = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32)).to(dev)
     one = torch.ones((), device=dev)
-    probe_ms = cuda_ms(lambda: probe(x_tile), 50)
-    probe_plain_ms = cuda_ms(lambda: probe_plain(x_tile), 50)
-    probe_library_ms = cuda_ms(lambda: torch.add(one, x_tile, alpha=2.0), 50)
-    empty_ms = cuda_ms(lambda: torch.cuda._sleep(0), 50)
+    probe_t = both(lambda: probe(x_tile), 50)
+    probe_plain_t = both(lambda: probe_plain(x_tile), 50)
+    probe_library_t = both(lambda: torch.add(one, x_tile, alpha=2.0), 50)
+    empty_t = both(lambda: torch.cuda._sleep(0), 50)
     probe_bound, probe_by = bound(2 * 4 * x_tile.numel(), 2 * x_tile.numel())
-    log(f"[time] probe (8, 128) kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
-        f"torch.add(1, x, alpha=2) {probe_library_ms:.4f} ms, empty launch "
-        f"{empty_ms:.4f} ms, bound {probe_bound:.2e} ms ({probe_by})")
+    log(f"[time] probe (8, 128) kernel {fmt(probe_t)}, plain {fmt(probe_plain_t)}, "
+        f"torch.add(1, x, alpha=2) {fmt(probe_library_t)}, empty launch "
+        f"{fmt(empty_t)}, bound {probe_bound:.2e} ms ({probe_by})")
 
+    # ms, plain_ms and library_ms are written-flush times (the earlier
+    # yardstick); the *_read keys the read-flush ones (L2 clean before each
+    # run).  gate_scan's plain version is a host loop timed once, unflushed.
     kernel_line = {"kernels": [
         {"name": "gate_front", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_front.py:88",
          "launches": main_launches["gate_front"], "max_abs_err": err_front,
-         "ms": front_ms, "plain_ms": front_plain_ms, "bound_ms": front_bound,
-         "bound_by": front_by, "library_ms": None},
+         "ms": front_t["write"], "plain_ms": front_plain_t["write"], "bound_ms": front_bound,
+         "bound_by": front_by, "library_ms": None, "ms_read": front_t["read"],
+         "plain_ms_read": front_plain_t["read"], "library_ms_read": None},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
          "launches": main_launches["gate_stack"], "max_abs_err": err_stack,
-         "ms": stack_ms, "plain_ms": stack_plain_ms, "bound_ms": stack_bound,
-         "bound_by": stack_by, "library_ms": None},
+         "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_bound,
+         "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
+         "plain_ms_read": stack_plain_t["read"], "library_ms_read": None},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",
          "launches": exact_launches["gate_scan"], "max_abs_err": err_scan,
-         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
-         "bound_by": scan_by, "library_ms": None},
+         "ms": scan_t["write"], "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
+         "bound_by": scan_by, "library_ms": None, "ms_read": scan_t["read"],
+         "plain_ms_read": None, "library_ms_read": None},
         {"name": "probe", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_gate_sums_experiment.py:116",
          "launches": tool_launches["probe"], "max_abs_err": err_probe,
-         "ms": probe_ms, "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
-         "bound_by": probe_by, "library_ms": probe_library_ms},
+         "ms": probe_t["write"], "plain_ms": probe_plain_t["write"], "bound_ms": probe_bound,
+         "bound_by": probe_by, "library_ms": probe_library_t["write"],
+         "ms_read": probe_t["read"], "plain_ms_read": probe_plain_t["read"],
+         "library_ms_read": probe_library_t["read"]},
     ]}
     print(json.dumps(kernel_line), flush=True)
     print(nvidia_smi(), flush=True)

@@ -18,7 +18,10 @@ from gen2_rfid_tpu_torch.config import ReaderConfig
 from gen2_rfid_tpu_torch.kernels.gate_front import BLOCK_Y, gate_front, gate_front_plain
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
     dense_edges, gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train, random_runs)
-from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
+from gen2_rfid_tpu_torch.kernels.gate_stack import (
+    burst_capture, check_arith, gate_stack_flags, gate_stack_plain, gate_stack_shape,
+    stream_geometry)
+from gen2_rfid_tpu_torch.kernels.gate_stack import stream_cases as gate_stack_cases
 from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
 
 CFG = ReaderConfig()
@@ -103,15 +106,59 @@ def test_gate_front_kernel_rejects_bad_blocking(cuda):
         gate_front(x2, 5, 25, 100, 48, block_y=4096)
 
 
-@pytest.mark.parametrize("n,block", [(40961, 1024), (9999, 256), (10240, 4096), (150, 1024)])
-def test_gate_stack_kernel_matches_plain(cuda, n, block):
+@pytest.mark.parametrize("n,run", [(40961, 32), (9999, 8), (10240, 128), (150, 0)])
+def test_gate_stack_kernel_matches_plain(cuda, n, run):
     y2 = torch.from_numpy(_noise(n, n)).to(cuda)
     before = kernels.launches["gate_stack"]
-    got = gate_stack_flags(y2, *STACK_ARGS, block=block)
+    got = gate_stack_flags(y2, *STACK_ARGS, run=run)
     want = gate_stack_plain(y2, *STACK_ARGS)
     torch.cuda.synchronize()
     assert kernels.launches["gate_stack"] == before + 1
     assert torch.equal(got, want)
+
+
+def test_gate_stack_arithmetic_is_ieee(cuda):
+    """The stream kernel's branch-free root and division by 100 equal the
+    IEEE intrinsics on every float of their range, 0 and [2^-100, FLT_MAX]
+    (a warp that meets any other input recomputes with the intrinsics)."""
+    got = check_arith()
+    assert got["sqrt_differs"] == 0 and got["div_differs"] == 0, got
+
+
+def test_gate_stack_kernel_on_the_model_cases(cuda):
+    """Every input the CPU model is held to (edge lengths, run boundaries,
+    ties, all above or below, tiny and infinite samples), and the blf640
+    and 160 kHz widths, which run the general kernel."""
+    for label, y2, geo, run in gate_stack_cases():
+        got = gate_stack_flags(y2.to(cuda), *geo, run=run)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), gate_stack_plain(y2, *geo)), label
+
+
+def _auto_run(ny, sms):
+    """The stream kernel's automatic run (csrc/gate_stack.cu::stream_run):
+    16 warps an SM, within [5, 253] words, rounded up so that a warp's steps
+    are a whole number of 4-step groups."""
+    left, delay, _, _ = stream_geometry(*STACK_ARGS[:3])
+    nwords = -(-ny // 32)
+    run = min(max(-(-nwords // (16 * sms)), 5), 253)
+    return -(-(left + delay + run) // 4) * 4 - left - delay
+
+
+@pytest.mark.parametrize("past", [0, 1, None])
+def test_gate_stack_kernel_at_bench_lengths(cuda, past):
+    """Bench-size bursts whose length lands on a run boundary of the
+    automatic run at the bench Ny (``past`` 0), one sample past it (1), and
+    the bench Ny itself (None)."""
+    bench_ny = 1_940_860
+    shp = gate_stack_shape(bench_ny, *STACK_ARGS[:3])
+    run = shp["run"]
+    assert run == _auto_run(bench_ny, shp["sms"])
+    ny = bench_ny if past is None else 32 * run * 2000 + past
+    y2 = burst_capture(ny, 3).to(cuda)
+    want = gate_stack_plain(y2, *STACK_ARGS)
+    for r in (0, run, 64):
+        assert torch.equal(gate_stack_flags(y2, *STACK_ARGS, run=r), want), r
 
 
 def _amp_avg(n, seed):
