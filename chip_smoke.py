@@ -59,10 +59,29 @@ then:
 9. the gate-sums tool (``gen2_rfid_tpu_torch.tools.gate_sums_experiment``)
    at its size: its three sum timings and errors, the pulse-count scans,
    and the probe; then the probe's, an empty launch's and the library
-   call's times.
+   call's times;
+10. Miller-M: at each of bench_configs.py's Miller geometries (miller4,
+    miller2, miller8_trext, 6.5-8.4 M samples) gate_front bit for bit and
+    gate_stack's flags (its shared-memory kernel at these widths) against
+    their plain versions; the full-size decode, 480 / 400 / 120 EPCs,
+    through one launch of each (gate_scan none), timed and profiled; both
+    kernels timed at each shape beside their bounds; five small Miller
+    captures and the pinned ``miller4_impaired`` SigMF fixture (5 queries,
+    round 6, 5 EPCs of tag 77), CUDA == CPU on every int/bool field;
+11. wideband: bench_configs.py's 16 Msps, 8-channel capture channelized on
+    the card against the CPU (5e-6 of the largest output), each channel
+    decoded (tags 27 and 99 on channels 1 and 6, nothing elsewhere; one
+    gate_front and one gate_stack a channel), the flat
+    ``decode_events_multi`` equal to the per-channel decode and
+    ``replay_inventory_batch`` to the per-channel stats; timed;
+12. stream: the golden trace in 200,000-sample chunks equal to the batch
+    decode (two kernel launches a chunk), the bench capture 640 / 640 at the
+    default 2,000,000-sample chunk, and a mid-stream checkpoint resumed in a
+    fresh decoder to equal stats; timed.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
+Prints a ``{"kernels": [...]}`` line (gate_front's and gate_stack's entries
+carry their Miller launch shapes under ``miller``), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package ``gen2_rfid_tpu``.
 """
@@ -73,6 +92,9 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and float32 FLOP/s outside
 # the tensor cores.  Both kernels are float32 CUDA-core code.
@@ -136,7 +158,7 @@ def bound(bytes_moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stage_breakdown(x2, cfg, reps=5):
+def stage_breakdown(x2, cfg, reps=5, label="stages"):
     """Host wall time of each stage of decode_capture_planar, each ended by
     a synchronize (median of reps): what a caller waits for, stage by stage."""
     import torch
@@ -170,13 +192,14 @@ def stage_breakdown(x2, cfg, reps=5):
     for name in runs[0]:
         ms = sorted(r[name] for r in runs)[reps // 2]
         total += ms
-        log(f"[stages] {name:17s} {ms:8.3f} ms (host wall, synchronized)")
-    log(f"[stages] sum of medians   {total:8.3f} ms")
+        log(f"[{label}] {name:17s} {ms:8.3f} ms (host wall, synchronized)")
+    log(f"[{label}] sum of medians   {total:8.3f} ms")
 
 
 def device_profile(fn, reps=3, top=12, label="profile"):
-    """torch.profiler over reps decodes: device time by kernel, and the
-    share of the window's wall time the device was busy."""
+    """torch.profiler over reps decodes: device time by kernel, the share
+    of the window's wall time the device was busy, and the device ops
+    (kernels, copies, fills) a decode."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -196,11 +219,285 @@ def device_profile(fn, reps=3, top=12, label="profile"):
     if not rows:
         log(f"[{label}] the profiler recorded no device time")
         return
+    n_ops = sum(r[1] for r in rows) // reps
     log(f"[{label}] {reps} decodes: wall {wall_us / reps / 1e3:.3f} ms/decode, "
         f"device busy {busy_us / reps / 1e3:.3f} ms/decode "
-        f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle)")
+        f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle), "
+        f"{n_ops} device ops/decode")
     for t, count, key in sorted(rows, reverse=True)[:top]:
         log(f"[{label}] {t / reps:9.1f} us/decode {count // reps:5d} calls  {key[:90]}")
+
+
+def front_bound(n, ny, taps, win, dcw):
+    """gate_front's least time: (2, N) in; y2, amp, avgsum, dcsum2 out (6 Ny
+    floats); float operations per output (taps, |y|, the window sums)."""
+    return bound(4 * (2 * n) + 4 * (6 * ny),
+                 ny * (2 * taps + 3 + 1 + (win - 1) + 2 * (dcw - 1)))
+
+
+def stack_bound(ny, win):
+    """gate_stack's least time: (2, Ny) in, Ny flags out; operations per
+    output (|y|, the dyadic levels, the combine, the threshold)."""
+    return bound(4 * (2 * ny) + 4 * ny,
+                 ny * (3 + 1 + (win.bit_length() - 1) + (bin(win).count("1") - 1) + 2))
+
+
+# Full-size Miller captures: bench_configs.py's case_miller4, case_miller2 and
+# case_miller8_trext (tag 27 seed 7, 20 rounds, seed 2, tiled): name, config,
+# tiles, ADC samples, EPCs.
+MILLER_BENCH = (
+    ("miller4", dict(miller_m=4, decim=1, max_events=1280), 24, 7_756_944, 480),
+    ("miller2", dict(miller_m=2, decim=2, max_events=1024), 20, 6_464_120, 400),
+    ("miller8_trext", dict(miller_m=8, trext=1, adc_rate=8e6, decim=2, max_events=640), 6,
+     8_393_424, 120),
+)
+# tests/test_miller.py::test_miller_decode's geometries and one TRext one.
+MILLER_SMALL = (
+    dict(miller_m=2, adc_rate=2e6, decim=2), dict(miller_m=2, adc_rate=2e6, decim=5),
+    dict(miller_m=4, adc_rate=4e6, decim=2), dict(miller_m=8, adc_rate=8e6, decim=2),
+    dict(miller_m=4, adc_rate=4e6, decim=2, trext=1),
+)
+
+
+def phase_miller(dev, both, fmt, path_run):
+    """Phase 10: the two kernels at each Miller bench geometry against their
+    plain versions; the full-size decodes through them, timed and profiled;
+    small captures and the pinned SigMF fixture, CUDA against CPU.  Returns
+    {kernel: {capture: time and bound}} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.io.sigmf import load_sigmf
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_stack import (
+        gate_stack_flags, gate_stack_plain, gate_stack_shape)
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+    from gen2_rfid_tpu_torch.tools.fixtures import fixture_specs
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    shapes = {"gate_front": {}, "gate_stack": {}}
+    for name, kw, reps, want_n, want_epc in MILLER_BENCH:
+        c = ReaderConfig(**kw)
+        tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=20, seed=2)
+        x2 = to_planar(np.concatenate([tr.iq] * reps)).to(dev)
+        n = x2.shape[1]
+        check(n == want_n and tr.expected_epc_pass * reps == want_epc,
+              f"{name}: N={n}, {tr.expected_epc_pass * reps} EPCs, expected {want_n}, {want_epc}")
+        geo_f = (c.decim, front_taps(c), c.win_length, c.dc_length)
+        geo_s = (c.win_length, c.n_samples_pw // 2, c.n_samples_t1, c.thresh_fraction)
+        got = gate_front(x2, *geo_f)
+        want = gate_front_plain(x2, *geo_f)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name}: gate_front is not bit-equal to its plain version")
+        y2 = got[0]
+        ny = y2.shape[1]
+        del got, want
+        n_bad = int((gate_stack_flags(y2, *geo_s) != gate_stack_plain(y2, *geo_s)).sum())
+        shp = gate_stack_shape(ny, *geo_s[:3])
+        log(f"[{name}] N={n}, Ny={ny}; gate_front (decim, taps, win, dc) {geo_f} bit-equal to "
+            f"plain; gate_stack widths {geo_s[:3]}: {n_bad} flags differ from plain; "
+            f"launch {shp}")
+        check(n_bad == 0, f"{name}: gate_stack flags differ from the plain version")
+        (st, _), counts = path_run(f"{name} bench", x2, c, once=True)
+        check(int(st.n_epc_correct) == want_epc and int(st.tag_reads[27]) == want_epc
+              and unique_tags(st) == 1,
+              f"{name}: {int(st.n_epc_correct)} EPCs, expected {want_epc} of tag 27")
+        ms = cuda_ms(lambda: decode_capture_planar(x2, c), 5)
+        log(f"[{name}] decode {ms:.3f} ms for {n} samples ({n / ms / 1e3:.1f} Msamples/s, "
+            f"{want_epc / ms * 1e3:.0f} EPC/s), {want_epc} / {want_epc} EPCs")
+        stage_breakdown(x2, c, label=f"stages {name}")
+        device_profile(lambda: decode_capture_planar(x2, c), reps=2, top=8,
+                       label=f"profile {name}")
+        front_t = both(lambda: gate_front(x2, *geo_f), 20)
+        stack_t = both(lambda: gate_stack_flags(y2, *geo_s), 20)
+        fb, fby = front_bound(n, ny, *geo_f[1:])
+        sb, sby = stack_bound(ny, geo_s[0])
+        front_bytes = (4 * (2 * n) + 4 * (6 * ny)) / HBM_BYTES_PER_S * 1e3
+        log(f"[time] {name} gate_front {fmt(front_t)}, bound {fb:.4f} ms ({fby}; "
+            f"{front_bytes:.4f} ms by its bytes alone); gate_stack {fmt(stack_t)}, "
+            f"bound {sb:.4f} ms ({sby})")
+        for k, t, b, by in (("gate_front", front_t, fb, fby), ("gate_stack", stack_t, sb, sby)):
+            shapes[k][name] = {"launches": counts[k], "ms": t["write"], "ms_read": t["read"],
+                               "bound_ms": b, "bound_by": by}
+        del x2, y2
+        torch.cuda.empty_cache()
+
+    for kw in MILLER_SMALL:
+        c = ReaderConfig(max_events=64, **kw)
+        tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=3, seed=1)
+        x2 = to_planar(tr.iq)
+        label = "miller " + " ".join(f"{k}={v}" for k, v in kw.items())
+        run, _ = path_run(label, x2.to(dev), c, once=True)
+        check((int(run[0].n_queries), int(run[0].n_epc_correct), int(run[0].tag_reads[27]))
+              == (3, 3, 3), f"{label}: not 3 queries and 3 EPCs of tag 27")
+        same_as_cpu(label, run, decode_capture_planar(x2, c, device="cpu"))
+    c = fixture_specs()["miller4_impaired"]["cfg"]
+    iq, _ = load_sigmf(str(REPO / "tests" / "fixtures" / "miller4_impaired"))
+    x2 = to_planar(iq)
+    run, _ = path_run("miller4_impaired fixture", x2.to(dev), c, once=True)
+    got = (int(run[0].n_queries), int(run[0].cur_inventory_round), int(run[0].n_epc_correct),
+           unique_tags(run[0]), int(run[0].tag_reads[77]))
+    log(f"[miller4_impaired fixture] queries, round, EPCs, unique tags, reads of 77: {got}")
+    check(got == (5, 6, 5, 1, 5), "miller4_impaired fixture: not its pinned stats")
+    same_as_cpu("miller4_impaired fixture", run, decode_capture_planar(x2, c, device="cpu"))
+    return shapes
+
+
+def wideband_capture():
+    """bench_configs.py::case_wideband8's capture: 16 Msps, tag 27 on channel
+    1 and tag 99 on channel 6, 6 rounds each, tiled to about 8 M samples.
+    Returns (complex64 capture, {channel: (tag, expected EPCs)})."""
+    import numpy as np
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    synth = ReaderConfig(adc_rate=16e6)
+    tr_a = synthesize_inventory(synth, [Tag.with_id(27, seed=7)], n_rounds=6, seed=3, noise=0.0)
+    tr_b = synthesize_inventory(synth, [Tag.with_id(99, seed=9)], n_rounds=6, seed=4, noise=0.0)
+    n1 = max(tr_a.iq.size, tr_b.iq.size)
+
+    def place(iq, k):
+        pad = np.zeros(n1, np.complex64)
+        pad[: iq.size] = iq
+        return pad * np.exp(2j * np.pi * k * np.arange(n1) / 8).astype(np.complex64)
+
+    rng = np.random.default_rng(5)
+    wide = place(tr_a.iq, 1) + place(tr_b.iq, 6)
+    wide += (rng.normal(0, 0.002, n1) + 1j * rng.normal(0, 0.002, n1)).astype(np.complex64)
+    reps = max(1, int(8e6 // n1))
+    return (np.concatenate([wide] * reps),
+            {1: (27, tr_a.expected_epc_pass * reps), 6: (99, tr_b.expected_epc_pass * reps)})
+
+
+def phase_wideband(dev, both, fmt):
+    """Phase 11: the channelizer on the card against the CPU, the
+    per-channel decode's counts, the flat multi-channel decode against the
+    per-channel one, timed."""
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.dsp.channelizer import channelize_planar, decode_wideband_planar
+    from gen2_rfid_tpu_torch.dsp.gate import GateEvents, gate_detect
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
+    from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg
+    from gen2_rfid_tpu_torch.runtime.inventory import (
+        decode_events, decode_events_multi, replay_inventory_batch, to_planar)
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    wide, occupied = wideband_capture()
+    x2_cpu = to_planar(wide)
+    x2 = x2_cpu.to(dev)
+    n_chan = 8
+    cfg = ReaderConfig(max_events=256)
+    ch = channelize_planar(x2, n_chan)
+    ch_cpu = channelize_planar(x2_cpu, n_chan)
+    err = float((ch.cpu() - ch_cpu).abs().max() / ch_cpu.abs().max())
+    log(f"[wideband] N={x2.shape[1]} at 16 Msps, {n_chan} channels of {ch.shape[2]}; "
+        f"channelizer max|cuda-cpu| / max|cpu| = {err:.3g}")
+    check(err <= 5e-6, f"channelizer on the card differs from the CPU by {err:.3g}")
+    kernels.reset_launches()
+    res = decode_wideband_planar(x2, n_chan, cfg)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    log(f"[wideband] launches {got}")
+    check(got["gate_front"] == n_chan and got["gate_stack"] == n_chan and not got["gate_scan"],
+          "wideband decode: one gate_front and one gate_stack a channel, no gate_scan")
+    for k in range(n_chan):
+        tag, want = occupied.get(k, (0, 0))
+        n_ok = int(res[k][0].n_epc_correct)
+        log(f"[wideband] channel {k}: {n_ok} EPCs (expected {want})")
+        check(n_ok == want and (not want or int(res[k][0].tag_reads[tag]) == want),
+              f"wideband channel {k}: {n_ok} EPCs, expected {want}")
+    ys, evs = [], []
+    for k in range(n_chan):
+        y2 = gate_front_for_cfg(ch[k], cfg)[0]
+        y = torch.complex(y2[0], y2[1])
+        ys.append(y)
+        evs.append(gate_detect(y, cfg, gate_stack_for_cfg(y2, cfg)))
+    y_c = torch.stack(ys)
+    ev_c = GateEvents(*(torch.stack(f) for f in zip(*evs)))
+    multi = decode_events_multi(y_c, ev_c, cfg)
+    for k in range(n_chan):
+        one = decode_events(y_c[k], evs[k], cfg, specialize=True, overflow_fallback=False)
+        for f in one._fields:
+            a = getattr(multi, f)[k]
+            if a.dtype in (torch.int32, torch.bool):
+                check(torch.equal(a, getattr(one, f)),
+                      f"decode_events_multi channel {k} {f} != the channel's decode_events")
+    stats_c = replay_inventory_batch(multi, cfg)
+    for k in range(n_chan):
+        for f in stats_c._fields:
+            check(torch.equal(getattr(stats_c, f)[k], getattr(res[k][0], f)),
+                  f"replay_inventory_batch channel {k} {f} != the channel's decode")
+    log("[wideband] decode_events_multi == per-channel decode_events on every int/bool "
+        "field; replay_inventory_batch == per-channel stats")
+    chan_t = both(lambda: channelize_planar(x2, n_chan), 10)
+    wide_ms = cuda_ms(lambda: decode_wideband_planar(x2, n_chan, cfg), 3)
+    multi_ms = cuda_ms(lambda: decode_events_multi(y_c, ev_c, cfg), 3)
+    log(f"[time] wideband channelizer {fmt(chan_t)}; whole wideband decode {wide_ms:.3f} ms "
+        f"for {x2.shape[1]} samples ({x2.shape[1] / wide_ms / 1e3:.1f} Msamples/s); "
+        f"decode_events_multi of the 8 tables {multi_ms:.3f} ms")
+    device_profile(lambda: decode_wideband_planar(x2, n_chan, cfg), reps=2, top=8,
+                   label="profile wideband")
+
+
+def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b):
+    """Phase 12: the golden trace streamed in 200,000-sample chunks equals the
+    batch decode; the bench capture at the default chunk reads 640 / 640; a
+    checkpoint saved mid-stream resumes in a fresh decoder; each chunk
+    launches gate_front and gate_stack once."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.runtime.stream import StreamDecoder
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    sd = StreamDecoder(cfg_g, chunk_adc=200_000)
+    kernels.reset_launches()
+    st_s, total = sd.decode(iter(np.array_split(tr_g.iq, 7)))
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    log(f"[stream golden] {sd._chunk_no} chunks, launches {got}, tuple {golden_tuple(st_s)}")
+    check(got["gate_front"] == got["gate_stack"] == sd._chunk_no and not got["gate_scan"],
+          "stream: one gate_front and one gate_stack a chunk, no gate_scan")
+    check(total == tr_g.iq.size and golden_tuple(st_s) == GOLDEN,
+          "stream: golden tuple not reproduced")
+    for f in st_s._fields:
+        check(torch.equal(getattr(st_s, f), getattr(st_g, f)),
+              f"stream golden InventoryStats.{f} != the batch decode's")
+    st_b, _ = StreamDecoder(cfg_b).decode(iter([iq_b]))
+    check(int(st_b.n_epc_correct) == 640 and int(st_b.tag_reads[27]) == 640,
+          f"stream bench: {int(st_b.n_epc_correct)} EPCs, expected 640")
+    ckpt = REPO / "build" / "chip_smoke_stream.npz"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    a = StreamDecoder(cfg_b)
+    a.reset()
+    a.feed(iq_b[: iq_b.size // 2])
+    a.save_checkpoint(str(ckpt))
+    b = StreamDecoder(cfg_b)
+    b.load_checkpoint(str(ckpt))
+    b.feed(iq_b[iq_b.size // 2:])
+    st_r, _ = b.finish()
+    for f in st_r._fields:
+        check(torch.equal(getattr(st_r, f), getattr(st_b, f)),
+              f"stream bench resumed from a checkpoint: InventoryStats.{f} differs")
+    ckpt.unlink()
+    log(f"[stream bench] 640 / 640 EPCs at the default chunk; resumed from a mid-stream "
+        f"checkpoint to equal stats")
+    ms = cuda_ms(lambda: StreamDecoder(cfg_b).decode(iter([iq_b])), 3)
+    log(f"[time] stream decode of the bench capture {ms:.3f} ms for {iq_b.size} samples "
+        f"({iq_b.size / ms / 1e3:.1f} Msamples/s)")
+    device_profile(lambda: StreamDecoder(cfg_b).decode(iter([iq_b])), reps=2, top=8,
+                   label="profile stream")
 
 
 def main() -> int:
@@ -276,7 +573,8 @@ def main() -> int:
     cfg_b = ReaderConfig(max_events=1536)
     tr_b = synthesize_inventory(cfg_b, [Tag.with_id(27, seed=7)], n_rounds=80, seed=2)
     reps_tile = 8
-    x2_b = to_planar(np.concatenate([tr_b.iq] * reps_tile)).to(dev)
+    iq_b = np.concatenate([tr_b.iq] * reps_tile)
+    x2_b = to_planar(iq_b).to(dev)
     n_b = x2_b.shape[1]
     ny_b = n_b // decim
     expected_b = tr_b.expected_epc_pass * reps_tile
@@ -443,24 +741,18 @@ def main() -> int:
     stack_gold_t = both(lambda: gate_stack_flags(y2_gold, *stack_geo), 20)
     stack_blf_t = both(lambda: gate_stack_flags(y2_blf, *BLF640), 20)
     stack_plain_t = both(lambda: gate_stack_plain(y2_bench, *stack_geo), 5)
-    # Bytes: each input read once, each output written once.  Operations:
-    # float adds/multiplies per output (taps, |y|, the window sums; the
-    # dyadic levels, the combine, the threshold).
-    front_bound, front_by = bound(
-        4 * (2 * n_b) + 4 * (6 * ny),
-        ny * (2 * taps + 3 + 1 + (win - 1) + 2 * (dcw - 1)))
-    nlev = win.bit_length()
+    # Bytes: each input read once, each output written once.
+    front_b, front_by = front_bound(n_b, ny, taps, win, dcw)
     stack_bytes = 4 * (2 * ny) + 4 * ny
-    stack_bound, stack_by = bound(
-        stack_bytes, ny * (3 + 1 + (nlev - 1) + (bin(win).count("1") - 1) + 2))
+    stack_b, stack_by = stack_bound(ny, win)
     log(f"[time] gate_front kernel {fmt(front_t)}, plain {fmt(front_plain_t)}, "
-        f"bound {front_bound:.4f} ms ({front_by}); runtime loop bounds (dc window "
+        f"bound {front_b:.4f} ms ({front_by}); runtime loop bounds (dc window "
         f"{dcw - 1}) {fmt(front_rt_t)}")
     log(f"[time] gate_stack stream kernel {fmt(stack_t)}, {stack_warm_ms:.4f} ms with its "
-        f"data in L2 (no flush), plain {fmt(stack_plain_t)}, bound {stack_bound:.4f} ms "
+        f"data in L2 (no flush), plain {fmt(stack_plain_t)}, bound {stack_b:.4f} ms "
         f"({stack_by}); achieved {stack_bytes / stack_t['read'] / 1e6:.0f} GB/s (read flush)")
     log(f"[time] gate_stack general kernel at the blf640 widths, Ny={ny}: {fmt(stack_blf_t)}, "
-        f"bound {stack_bound:.4f} ms (the same bytes)")
+        f"bound {stack_b:.4f} ms (the same bytes)")
     log(f"[time] gate_stack at golden Ny={y2_gold.shape[1]}: stream {fmt(stack_gold_t)}")
 
     # ---- phase 5: where the bench decode's time goes ----
@@ -600,9 +892,11 @@ def main() -> int:
         f"{steps_d} serial steps; kernel == plain")
 
     # ---- phase 8: the optional FM0 stages on the golden trace ----
-    def native_path_run(label, x2, c):
+    def native_path_run(label, x2, c, once=False):
         """One decode with the counts set to 0 just before and read just
-        after: the native path runs both front kernels and not gate_scan."""
+        after: the native path runs both front kernels and not gate_scan;
+        with ``once``, each front kernel exactly once.  Returns the decode
+        and the counts it read."""
         kernels.reset_launches()
         run_o = decode_capture_planar(x2, c)
         torch.cuda.synchronize()
@@ -610,7 +904,9 @@ def main() -> int:
         log(f"[{label}] launches {got}")
         check(got["gate_front"] and got["gate_stack"] and not got["gate_scan"],
               f"{label}: gate_front and gate_stack must run, gate_scan not")
-        return run_o
+        check(not once or (got["gate_front"], got["gate_stack"]) == (1, 1),
+              f"{label}: gate_front and gate_stack must launch once each")
+        return run_o, got
 
     for label, c, want in (
             ("epc_softfix=8", ReaderConfig(epc_softfix=8), GOLDEN),
@@ -619,14 +915,14 @@ def main() -> int:
             # The second strongest line is the tag's own: the JAX package
             # loses every EPC here too (tests/test_torch_fm0_stages.py).
             ("cancel_cw=2", ReaderConfig(cancel_cw=2), (71, 72, 0, 0, 0))):
-        run_o = native_path_run(f"golden {label}", x2_gd, c)
+        run_o, _ = native_path_run(f"golden {label}", x2_gd, c)
         check(golden_tuple(run_o[0]) == want,
               f"golden with {label}: {golden_tuple(run_o[0])}, expected {want}")
         same_as_cpu(f"golden {label}", run_o, decode_capture_planar(x2_g, c, device="cpu"))
         opt_ms = cuda_ms(lambda: decode_capture_planar(x2_gd, c), 5)
         log(f"[golden {label}] tuple {golden_tuple(run_o[0])}, decode {opt_ms:.3f} ms")
     cfg_bo = ReaderConfig(max_events=1536, epc_softfix=8, track_channel=True, cancel_cw=1)
-    st_bo, _ = native_path_run("bench softfix+tracking+cancel_cw=1", x2_b, cfg_bo)
+    (st_bo, _), _ = native_path_run("bench softfix+tracking+cancel_cw=1", x2_b, cfg_bo)
     check(int(st_bo.n_epc_correct) == 640 and int(st_bo.tag_reads[27]) == 640,
           f"bench decode with every FM0 switch: {int(st_bo.n_epc_correct)} EPCs")
     opt_bench_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bo), 5)
@@ -658,6 +954,11 @@ def main() -> int:
         f"torch.add(1, x, alpha=2) {fmt(probe_library_t)}, empty launch "
         f"{fmt(empty_t)}, bound {probe_bound:.2e} ms ({probe_by})")
 
+    # ---- phases 10-12: Miller, wideband, stream ----
+    miller_shapes = phase_miller(dev, both, fmt, native_path_run)
+    phase_wideband(dev, both, fmt)
+    phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b)
+
     # ms, plain_ms and library_ms are written-flush times (the earlier
     # yardstick); the *_read keys the read-flush ones (L2 clean before each
     # run).  gate_scan's plain version is a host loop timed once, unflushed.
@@ -666,16 +967,18 @@ def main() -> int:
          "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_front.py:88",
          "launches": main_launches["gate_front"], "max_abs_err": err_front,
-         "ms": front_t["write"], "plain_ms": front_plain_t["write"], "bound_ms": front_bound,
+         "ms": front_t["write"], "plain_ms": front_plain_t["write"], "bound_ms": front_b,
          "bound_by": front_by, "library_ms": None, "ms_read": front_t["read"],
-         "plain_ms_read": front_plain_t["read"], "library_ms_read": None},
+         "plain_ms_read": front_plain_t["read"], "library_ms_read": None,
+         "miller": miller_shapes["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
          "launches": main_launches["gate_stack"], "max_abs_err": err_stack,
-         "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_bound,
+         "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_b,
          "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
-         "plain_ms_read": stack_plain_t["read"], "library_ms_read": None},
+         "plain_ms_read": stack_plain_t["read"], "library_ms_read": None,
+         "miller": miller_shapes["gate_stack"]},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",

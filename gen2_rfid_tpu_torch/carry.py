@@ -47,6 +47,17 @@ def decoded_to_numpy(dec) -> Dict[str, np.ndarray]:
     return _to_numpy(dec)
 
 
+def decoded_from_numpy(fields, device="cpu"):
+    """The port's DecodedEvents from a mapping (a dict, an ``np.load``
+    archive's fields) or an object with DecodedEvents' fields as arrays."""
+    from .runtime.inventory import DecodedEvents
+
+    get = fields.__getitem__ if isinstance(fields, Mapping) else (
+        lambda name: getattr(fields, name))
+    return DecodedEvents(**{name: torch.from_numpy(np.array(get(name))).to(device)
+                            for name in DecodedEvents._fields})
+
+
 def stats_to_numpy(stats) -> Dict[str, np.ndarray]:
     """The port's InventoryStats as a dict of numpy arrays."""
     return _to_numpy(stats)

@@ -119,8 +119,9 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
 
 
 def front_taps(cfg: ReaderConfig) -> int:
-    """Boxcar length matched to half an FM0 symbol at ADC rate (25 at the
-    defaults); runtime/inventory.py::matched_taps is this many ones."""
+    """Boxcar length matched to half an FM0 symbol or one Miller half-cycle
+    at ADC rate (25 at the defaults); runtime/inventory.py::matched_taps is
+    this many ones."""
     return int(cfg.tag_bit_us / 2 * cfg.adc_rate / 1e6 / cfg.miller_m)
 
 

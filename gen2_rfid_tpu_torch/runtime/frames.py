@@ -23,21 +23,30 @@ if TYPE_CHECKING:
 GRANULE = 8
 
 
-def gather_aligned_windows(y: torch.Tensor, starts: torch.Tensor, width: int):
-    """(len(starts), width + GRANULE) windows at starts rounded down to the
-    granule; out-of-range rows clamp to the last row (masked by the fits
-    flags downstream)."""
+def gather_aligned_windows_multi(y_c: torch.Tensor, starts: torch.Tensor,
+                                 chans: torch.Tensor, width: int):
+    """(len(starts), width + GRANULE) windows, window e from channel
+    chans[e] of y_c (C, n) at starts[e] rounded down to the granule, as one
+    gather over the (C * n_rows, GRANULE) view (frames.py:46-67).  A row past
+    the channel's end clamps to its last row (masked by the fits flags
+    downstream)."""
     g = GRANULE
-    n = y.shape[0]
+    c, n = y_c.shape
     n_rows = -(-n // g)
-    yp = torch.cat([y, y.new_zeros(n_rows * g - n)]).reshape(n_rows, g)
+    yp = torch.cat([y_c, y_c.new_zeros((c, n_rows * g - n))], dim=1).reshape(c * n_rows, g)
     w_rows = width // g + 2
     r0 = torch.clamp(starts.to(torch.int64), min=0) // g
     rows = torch.clamp(
-        r0[:, None] + torch.arange(w_rows, device=y.device)[None, :],
-        max=n_rows - 1)
+        r0[:, None] + torch.arange(w_rows, device=y_c.device)[None, :],
+        max=n_rows - 1) + chans.to(torch.int64)[:, None] * n_rows
     out = yp[rows]                                   # (E, w_rows, g)
     return out.reshape(starts.shape[0], w_rows * g)[:, : width + g]
+
+
+def gather_aligned_windows(y: torch.Tensor, starts: torch.Tensor, width: int):
+    """The windows of one channel y (n,): the C = 1 case of
+    ``gather_aligned_windows_multi``."""
+    return gather_aligned_windows_multi(y[None], starts, torch.zeros_like(starts), width)
 
 
 def extract_windows(

@@ -1,11 +1,13 @@
 """Batch inventory decode: full pipeline + explicit round-FSM replay.
 
-PyTorch counterpart of ``gen2_rfid_tpu/runtime/inventory.py`` for FM0,
-in native and compat mode.  Every heavy stage (front end, gate, window
-extraction, sync, RN16/EPC detection, CRC) runs batched over all events at
-once; the Gen2 inventory-round state machine is then replayed over the
-event table, in closed form for well-formed tables and with the exact
-sequential scan otherwise.
+PyTorch counterpart of ``gen2_rfid_tpu/runtime/inventory.py`` for FM0 and
+Miller-M (dsp/miller.py), in native and compat mode.  Every heavy stage
+(front end, gate, window extraction, sync, RN16/EPC detection, CRC) runs
+batched over all events at once; the Gen2 inventory-round state machine is
+then replayed over the event table, in closed form for well-formed tables
+and with the exact sequential scan otherwise.  ``decode_events_multi`` and
+``replay_inventory_batch`` do the same for several channels' tables at
+once.
 
 ``decode_capture_planar`` runs one pipeline on either device, after the
 optional CW cancellation (dsp/interference.py).  The fused front end
@@ -32,14 +34,14 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
-from ..dsp import fm0, sync
+from ..dsp import fm0, miller, sync
 from ..dsp.filters import boxcar_taps
 from ..dsp.gate import GateEvents, gate_detect, gate_detect_scan
 from ..dsp.interference import cancel_cw_planar
 from ..kernels.gate_front import front_taps, gate_front_for_cfg
 from ..kernels.gate_stack import gate_stack_for_cfg
 from ..protocol.crc import crc16_affine
-from .frames import extract_windows, gather_aligned_windows
+from .frames import extract_windows, gather_aligned_windows_multi
 from .softfix import recover_epc_batch
 from .stats import N_TAG_BINS, InventoryStats
 
@@ -202,15 +204,38 @@ def _validate_epc_soft(epc_bits: torch.Tensor, rel: torch.Tensor, cfg: ReaderCon
     return ok2, tid2, merged
 
 
+def _sync(frames, cfg):
+    """(index, h_est, eps): FM0's preamble sync (eps None) or Miller's, whose
+    chip-period estimate seeds the segment cascade (inventory.py:267-332)."""
+    if cfg.miller_m == 1:
+        return sync.tag_sync(frames, cfg) + (None,)
+    return miller.miller_sync_full(frames, cfg)
+
+
+def _detect_rn16(frames, index, h_est, eps, cfg):
+    """(bits, margin) of the RN16, FM0 or Miller."""
+    if cfg.miller_m == 1:
+        return fm0.rn16_detect_soft(frames, index, h_est, cfg)
+    return miller.miller_rn16_soft(frames, index, h_est, cfg, eps0=eps)
+
+
 def _decode_rn16_frames(frames, cfg):
-    index, h_est = sync.tag_sync(frames, cfg)
-    bits, margin = fm0.rn16_detect_soft(frames, index, h_est, cfg)
+    index, h_est, eps = _sync(frames, cfg)
+    bits, margin = _detect_rn16(frames, index, h_est, eps, cfg)
     return bits, h_est, margin
 
 
+def _detect_epc(frames, magn2, index, h_est, eps, cfg):
+    """(bits, t_half, rel): FM0's period estimate and half-period, or the
+    Miller cascade and its chip period; rel the per-bit reliabilities."""
+    if cfg.miller_m == 1:
+        return fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)
+    return miller.miller_epc_soft(frames, index, h_est, cfg, eps0=eps)
+
+
 def _decode_epc_frames(frames, magn2, cfg):
-    index, h_est = sync.tag_sync(frames, cfg)
-    bits, t_half, rel = fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)
+    index, h_est, eps = _sync(frames, cfg)
+    bits, t_half, rel = _detect_epc(frames, magn2, index, h_est, eps, cfg)
     return bits, t_half, h_est, rel
 
 
@@ -219,11 +244,12 @@ def _h_planes(h: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_events_paranoid(y, events: GateEvents, cmd, cfg) -> DecodedEvents:
-    """Role-agnostic decode: every event as both an RN16 and an EPC window."""
+    """Role-agnostic decode: every event as both an RN16 and an EPC window,
+    one sync for both."""
     frames, magn2, rn16_fits, epc_fits = extract_windows(y, events, cfg)
-    index, h_est = sync.tag_sync(frames, cfg)
-    rn16_bits, margin = fm0.rn16_detect_soft(frames, index, h_est, cfg)
-    epc_bits, t_half, rel = fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)
+    index, h_est, eps = _sync(frames, cfg)
+    rn16_bits, margin = _detect_rn16(frames, index, h_est, eps, cfg)
+    epc_bits, t_half, rel = _detect_epc(frames, magn2, index, h_est, eps, cfg)
     epc_pass, tag_id, epc_bits = _validate_epc_soft(epc_bits, rel, cfg)
     energy = magn2[:, : cfg.rn16_window].mean(dim=1)
     h2 = h_est.real ** 2 + h_est.imag ** 2
@@ -257,8 +283,9 @@ def decode_events(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
         n_a = int(role_a.sum())
         if n_q > cap_q or n_a > cap_q:
             return _decode_events_paranoid(y, events, cmd, cfg)
-    return _decode_events_specialized(y, events, cmd, role_q, role_a,
-                                      cap_q, cap_q, cfg)
+    dec = _decode_specialized(y[None], GateEvents(*(t[None] for t in events)), cmd[None],
+                              role_q[None], role_a[None], cap_q, cfg)
+    return DecodedEvents(*(t[0] for t in dec))
 
 
 def _compact_rows(mask: torch.Tensor, sub_cap: int) -> torch.Tensor:
@@ -273,63 +300,86 @@ def _compact_rows(mask: torch.Tensor, sub_cap: int) -> torch.Tensor:
     return rows[:sub_cap]
 
 
-def _scatter_rows(rows: torch.Tensor, vals: torch.Tensor, init: torch.Tensor):
-    """init (cap+1, ...) with vals written at rows; row cap is the drop row."""
-    out = init.clone()
-    out[rows] = vals.to(out.dtype)
-    return out[:-1]
+def _decode_specialized(y_c, events_c: GateEvents, cmd, role_q, role_a, cap_q: int,
+                        cfg: ReaderConfig) -> DecodedEvents:
+    """Role-specialized decode of C channels' event tables as one flat batch:
+    y_c (C, n) complex64, the tables' leaves (C, cap).  Each channel's
+    role_q / role_a events are compacted to cap_q rows, their windows
+    gathered from the channel's own y (gather_aligned_windows_multi) and the
+    results scattered back, channel c's private drop slot at flat row
+    c*(cap+1)+cap.  Leaves come back (C, cap, ...)."""
+    c, cap = events_c.index.shape
+    n = y_c.shape[1]
+    dev = y_c.device
+    capp = cap + 1
+    chan_base = torch.arange(c, device=dev)[:, None] * capp
 
+    def flat_rows(mask):
+        rows = torch.stack([_compact_rows(mask[k], cap_q) for k in range(c)])
+        return (chan_base + rows).reshape(-1)
 
-def _decode_events_specialized(y, events: GateEvents, cmd, role_q, role_a,
-                               cap_q: int, cap_a: int, cfg) -> DecodedEvents:
-    """Role-specialized decode over compacted per-role event lists."""
-    n = y.shape[0]
-    cap = events.index.shape[0]
-    dev = y.device
-    q_rows = _compact_rows(role_q, cap_q)
-    a_rows = _compact_rows(role_a, cap_a)
-    idx_pad = torch.cat([events.index, events.index.new_full((1,), n)])
-    dc_pad = torch.cat([events.dc, events.dc.new_zeros(1)])
+    fq, fa = flat_rows(role_q), flat_rows(role_a)
+
+    def padded(v, fill):
+        return torch.cat([v, v.new_full((c, 1), fill)], dim=1).reshape(-1)
+
+    idx_pad = padded(events_c.index, n)
+    dc_pad = padded(events_c.dc, 0)
 
     def gather_windows(rows, width):
         start = torch.clamp(idx_pad[rows], max=n - 1)
-        fr = gather_aligned_windows(y, start, width) - dc_pad[rows][:, None]
+        fr = gather_aligned_windows_multi(y_c, start, rows // capp, width) - dc_pad[rows][:, None]
         return fr, (fr.real ** 2 + fr.imag ** 2).to(torch.float32)
 
-    q_frames, q_magn2 = gather_windows(q_rows, cfg.rn16_window)
-    a_frames, a_magn2 = gather_windows(a_rows, cfg.epc_window)
+    q_frames, q_magn2 = gather_windows(fq, cfg.rn16_window)
+    a_frames, a_magn2 = gather_windows(fa, cfg.epc_window)
     q_bits, q_h, q_margin = _decode_rn16_frames(q_frames, cfg)
     a_bits, a_thalf, a_h, a_rel = _decode_epc_frames(a_frames, a_magn2, cfg)
     a_pass, a_tid, a_bits = _validate_epc_soft(a_bits, a_rel, cfg)
     q_energy = q_magn2.mean(dim=1)
-    nv_pad = torch.cat([events.noise_var, events.noise_var.new_ones(1)])
     q_h2 = q_h.real ** 2 + q_h.imag ** 2
-    q_state = classify_slots(q_energy, q_margin, nv_pad[q_rows], q_h2)
+    q_state = classify_slots(q_energy, q_margin, padded(events_c.noise_var, 1.0)[fq], q_h2)
 
-    def zeros(*shape, dtype=_I32):
-        return torch.zeros((cap + 1,) + shape, dtype=dtype, device=dev)
+    def scatter(rows, vals, *shape, dtype=_I32, fill=0):
+        out = torch.full((c * capp,) + shape, fill, dtype=dtype, device=dev)
+        out[rows] = vals.to(dtype)
+        return out.reshape((c, capp) + shape)[:, :cap]
 
     f32 = torch.float32
-    h_full = torch.zeros((cap + 1,), dtype=q_h.dtype, device=dev)
-    h_full[q_rows] = q_h
-    h_full[a_rows] = a_h
+    h_full = torch.zeros((c * capp,), dtype=q_h.dtype, device=dev)
+    h_full[fq] = q_h
+    h_full[fa] = a_h
     return DecodedEvents(
-        index=events.index,
-        valid=events.valid,
-        rn16_fits=events.valid & (events.index + cfg.rn16_window <= n),
-        epc_fits=events.valid & (events.index + cfg.epc_window <= n),
-        rn16_bits=_scatter_rows(q_rows, q_bits, zeros(16)),
-        epc_bits=_scatter_rows(a_rows, a_bits, zeros(a_bits.shape[1])),
-        epc_pass=_scatter_rows(a_rows, a_pass, zeros(dtype=torch.bool)),
-        tag_id=_scatter_rows(a_rows, a_tid, zeros()),
-        t_half=_scatter_rows(a_rows, a_thalf, zeros(dtype=f32)),
-        h_est=_h_planes(h_full[:cap]),
-        slot_state=_scatter_rows(q_rows, q_state, torch.full(
-            (cap + 1,), -1, dtype=_I32, device=dev)),
-        rn16_energy=_scatter_rows(q_rows, q_energy, zeros(dtype=f32)),
-        rn16_margin=_scatter_rows(q_rows, q_margin, zeros(dtype=f32)),
+        index=events_c.index,
+        valid=events_c.valid,
+        rn16_fits=events_c.valid & (events_c.index + cfg.rn16_window <= n),
+        epc_fits=events_c.valid & (events_c.index + cfg.epc_window <= n),
+        rn16_bits=scatter(fq, q_bits, 16),
+        epc_bits=scatter(fa, a_bits, a_bits.shape[1]),
+        epc_pass=scatter(fa, a_pass, dtype=torch.bool),
+        tag_id=scatter(fa, a_tid),
+        t_half=scatter(fa, a_thalf, dtype=f32),
+        h_est=_h_planes(h_full.reshape(c, capp)[:, :cap]),
+        slot_state=scatter(fq, q_state, fill=-1),
+        rn16_energy=scatter(fq, q_energy, dtype=f32),
+        rn16_margin=scatter(fq, q_margin, dtype=f32),
         cmd_type=cmd,
     )
+
+
+def decode_events_multi(y_c: torch.Tensor, events_c: GateEvents, cfg: ReaderConfig
+                        ) -> DecodedEvents:
+    """Role-specialized decode of C channels' event tables as one flat batch
+    (inventory.py:510-621): y_c (C, n) complex64, events_c leaves (C, cap).
+
+    Equal to ``decode_events(specialize=True, overflow_fallback=False)``
+    channel by channel, which is its C = 1 case.  Leaves come back (C, cap,
+    ...)."""
+    c, cap = events_c.index.shape
+    cap_q = min(cap, cap // 2 + 1 + ROLE_SLACK)
+    cmd = classify_commands(events_c.n_pulses.reshape(-1), cfg).reshape(c, cap)
+    role_q, role_a = command_roles(cmd, events_c.valid)
+    return _decode_specialized(y_c, events_c, cmd, role_q, role_a, cap_q, cfg)
 
 
 def replay_inventory_scan(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
@@ -482,6 +532,19 @@ def replay_inventory(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     return replay_inventory_scan(dec, cfg)
 
 
+def replay_inventory_batch(dec_c: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
+    """Per-channel replay of (C, cap) tables, each stats leaf stacked on a
+    leading channel axis (inventory.py:750-769): the closed form for every
+    channel when every channel's table allows it, else ``replay_inventory``
+    channel by channel.  The same stats as replaying each channel alone."""
+    decs = [DecodedEvents(*(f[k] for f in dec_c)) for k in range(dec_c.index.shape[0])]
+    if all(_replay_fast_ok(d, cfg) for d in decs):
+        stats = [_replay_fast_stats(d, cfg) for d in decs]
+    else:
+        stats = [replay_inventory(d, cfg) for d in decs]
+    return InventoryStats(*(torch.stack(f) for f in zip(*stats)))
+
+
 def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
                  exact_gate: bool = False, amp: torch.Tensor = None,
                  avg: torch.Tensor = None) -> Tuple[InventoryStats, DecodedEvents]:
@@ -492,7 +555,6 @@ def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     front end, which compat mode and the exact gate need.  Native mode
     decodes role-specialized windows; compat decodes every event as both
     windows, as the reference decoder runs both branches' arithmetic."""
-    _check_slice(cfg)
     if exact_gate:
         events = gate_detect_scan(y, cfg, amp, avg)
     else:
@@ -502,16 +564,9 @@ def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
 
 
 def matched_taps(cfg: ReaderConfig):
-    """Boxcar matched to half an FM0 symbol at ADC rate: 25 taps at the
-    defaults (apps/reader.py:63-65)."""
+    """Boxcar matched to half an FM0 symbol (or one Miller half-cycle) at ADC
+    rate: 25 taps at the defaults (apps/reader.py:63-65)."""
     return boxcar_taps(front_taps(cfg))
-
-
-def _check_slice(cfg: ReaderConfig) -> None:
-    """Raise for the one configuration the port does not run yet."""
-    if cfg.miller_m != 1:
-        raise NotImplementedError(
-            "miller_m != 1 is not ported yet (ROADMAP queue 1: Miller)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -537,7 +592,6 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
     |y| and avg = sum / win_length from the front end, which is the JAX
     package's ``pallas_front`` path.  Runs on CUDA unless ``device`` says
     otherwise."""
-    _check_slice(cfg)
     dev = resolve_device(device)
     x2 = torch.as_tensor(iq2, dtype=torch.float32).to(dev).contiguous()
     if cfg.cancel_cw:

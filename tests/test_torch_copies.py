@@ -1,18 +1,22 @@
 """The port's copies of the JAX package's pure-numpy modules match their originals.
 
 The port imports nothing of ``gen2_rfid_tpu``, so it keeps its own copies of
-the configuration, the CRC and the simulator chain.  These tests hold each
-copy to its original: the source text, every config field and derived
-property, and the simulator's captures byte for byte.
+the configuration, the CRC, the simulator chain, the SigMF reader and
+writer (with the EPC tag-data standards its annotations name) and the
+fixtures' recipes.  These tests hold each copy to its original: the source
+text, every config field and derived property, the simulator's captures and
+the fixtures' bytes.
 """
 
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 import gen2_rfid_tpu.config as ref_config
+import gen2_rfid_tpu.io.sigmf as ref_sigmf
 import gen2_rfid_tpu.protocol.crc as ref_crc
 import gen2_rfid_tpu.sim.tag as ref_tag
 import gen2_rfid_tpu.sim.trace as ref_trace
@@ -21,10 +25,12 @@ import gen2_rfid_tpu_torch.protocol.crc as port_crc
 import gen2_rfid_tpu_torch.sim.tag as port_tag
 import gen2_rfid_tpu_torch.sim.trace as port_trace
 from gen2_rfid_tpu_torch.carry import config_from_fields
+from gen2_rfid_tpu_torch.io import sigmf as port_sigmf
+from gen2_rfid_tpu_torch.tools import fixtures as port_fixtures
 
 REPO = Path(__file__).resolve().parents[1]
-COPIES = ["config.py", "protocol/crc.py", "protocol/gen2.py", "tx/pie.py",
-          "sim/tag.py", "sim/trace.py"]
+COPIES = ["config.py", "protocol/crc.py", "protocol/gen2.py", "protocol/tds.py",
+          "tx/pie.py", "sim/tag.py", "sim/trace.py", "io/sigmf.py"]
 
 CONFIGS = [
     dict(),
@@ -115,3 +121,44 @@ def test_multitag_q2_scene_bytes_match():
 
     _same_trace(scene(port_config, port_tag, port_trace),
                 scene(ref_config, ref_tag, ref_trace))
+
+
+def _make_fixtures():
+    """tools/make_fixtures.py, loaded as tests/test_fixture.py loads it."""
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", REPO / "tools" / "make_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fixture_specs_match():
+    """The port's recipes are tools/make_fixtures.py's, field for field."""
+    ref = _make_fixtures().fixture_specs()
+    port = port_fixtures.fixture_specs()
+    assert sorted(port) == sorted(ref)
+    for name in ref:
+        assert dataclasses.asdict(port[name]["cfg"]) == dataclasses.asdict(ref[name]["cfg"])
+        assert port[name]["synth"] == ref[name]["synth"]
+        assert len(port[name]["tags"]) == len(ref[name]["tags"])
+        for a, b in zip(port[name]["tags"], ref[name]["tags"]):
+            fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert sorted(fa) == sorted(fb)
+            for k in fa:
+                np.testing.assert_array_equal(np.asarray(fa[k]), np.asarray(fb[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(port_fixtures.fixture_specs()))
+def test_port_regenerates_fixture_bytes(tmp_path, name):
+    """The port's simulator and SigMF writer regenerate each committed
+    fixture byte for byte, and its reader loads what the original loads."""
+    cfg, tr = port_fixtures.synthesize(name)
+    base = str(tmp_path / name)
+    port_sigmf.save_sigmf(base, tr.iq, cfg, description=f"gen2_rfid_tpu pinned fixture {name}",
+                          datatype="ci16_le")
+    fixture = REPO / "tests" / "fixtures" / name
+    for suffix in (".sigmf-data", ".sigmf-meta"):
+        assert Path(base + suffix).read_bytes() == Path(str(fixture) + suffix).read_bytes()
+    iq, meta = port_sigmf.load_sigmf(str(fixture))
+    ref_iq, ref_meta = ref_sigmf.load_sigmf(str(fixture))
+    assert iq.tobytes() == ref_iq.tobytes() and meta == ref_meta

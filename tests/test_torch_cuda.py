@@ -258,3 +258,82 @@ def test_probe_kernel_matches_plain(cuda, shape):
     assert kernels.launches["probe"] == before + 1
     assert torch.equal(got, probe_plain(x))
     assert torch.equal(probe(x[..., 1:]), probe_plain(x[..., 1:]))   # unaligned view
+
+
+# ---- Miller, wideband and stream paths -----------------------------------------
+
+# bench_configs.py's Miller geometries: gate_front's runtime-bound build and
+# gate_stack's shared-memory kernel.
+MILLER_WIDTHS = [dict(miller_m=4, decim=1), dict(miller_m=2, decim=2),
+                 dict(miller_m=8, trext=1, adc_rate=8e6, decim=2)]
+
+
+@pytest.mark.parametrize("kw", MILLER_WIDTHS, ids=["miller4", "miller2", "miller8_trext"])
+def test_kernels_at_miller_widths(cuda, kw):
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps
+
+    c = ReaderConfig(**kw)
+    geo = (c.decim, front_taps(c), c.win_length, c.dc_length)
+    x2 = torch.from_numpy(_noise(200_003, 11)).to(cuda)
+    for g, w in zip(gate_front(x2, *geo), gate_front_plain(x2, *geo)):
+        assert torch.equal(g, w), geo
+    geo_s = (c.win_length, c.n_samples_pw // 2, c.n_samples_t1, c.thresh_fraction)
+    y2 = burst_capture(100_001, 3).to(cuda)
+    assert torch.equal(gate_stack_flags(y2, *geo_s), gate_stack_plain(y2, *geo_s)), geo_s
+
+
+def _same_int_fields(got, want):
+    for f in got._fields:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, b), f
+
+
+def test_miller_decode_on_card(cuda):
+    """A tracked Miller-4 capture with a 2% BLF error: through one launch of
+    each front kernel, equal to the CPU decode on every int/bool field."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    c = ReaderConfig(miller_m=4, adc_rate=4e6, decim=2, max_events=64, track_channel=True)
+    tr = synthesize_inventory(c, [Tag.with_id(27, seed=7, blf_offset=0.02)], n_rounds=3, seed=1)
+    x2 = to_planar(tr.iq)
+    before = dict(kernels.launches)
+    st, dec = decode_capture_planar(x2.to(cuda), c)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_front"] == before["gate_front"] + 1
+    assert kernels.launches["gate_stack"] == before["gate_stack"] + 1
+    assert kernels.launches["gate_scan"] == before["gate_scan"]
+    assert int(st.n_epc_correct) == 3
+    st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
+    _same_int_fields(dec, dec_c)
+    _same_int_fields(st, st_c)
+
+
+def test_channelize_on_card(cuda):
+    from gen2_rfid_tpu_torch.dsp.channelizer import channelize_planar
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x2 = torch.from_numpy(_noise(40_000, 4))
+    want = channelize_planar(x2, 8)
+    got = channelize_planar(x2.to(cuda), 8).cpu()
+    assert float((got - want).abs().max()) <= 5e-6 * float(want.abs().max())
+
+
+def test_stream_on_card(cuda):
+    """The golden trace in 200,000-sample chunks: the batch decode's stats,
+    one gate_front and one gate_stack launch a chunk."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture
+    from gen2_rfid_tpu_torch.runtime.stream import StreamDecoder
+    from gen2_rfid_tpu_torch.sim.trace import golden_trace
+
+    tr = golden_trace(CFG)
+    before = dict(kernels.launches)
+    sd = StreamDecoder(CFG, chunk_adc=200_000)
+    st, total = sd.decode(iter(np.array_split(tr.iq, 5)))
+    torch.cuda.synchronize()
+    for k in ("gate_front", "gate_stack"):
+        assert kernels.launches[k] == before[k] + sd._chunk_no
+    _same_int_fields(st, decode_capture(tr.iq, CFG, device="cpu")[0])
+    assert int(st.n_epc_correct) == 70

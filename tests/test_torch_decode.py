@@ -293,9 +293,13 @@ def test_no_device_without_cuda_raises(monkeypatch, golden):
 
 
 def test_configs_outside_the_slice_raise():
+    """Miller, the last configuration outside the port's slices, no longer
+    raises: a capture that is all carrier decodes to no events."""
     iq = np.ones(20000, np.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inv.decode_capture(iq, ReaderConfig(miller_m=4), device="cpu")
+    for kw in (dict(miller_m=4), dict(miller_m=8, trext=1, adc_rate=8e6, decim=2)):
+        stats, dec = inv.decode_capture(iq, ReaderConfig(max_events=16, **kw), device="cpu")
+        assert int(stats.n_events) == 0 and not bool(dec.valid.any())
+        assert int(stats.n_queries) == 0 and int(stats.cur_inventory_round) == 1
 
 
 @pytest.mark.parametrize("kw,exact_gate", [

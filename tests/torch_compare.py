@@ -13,6 +13,8 @@ differences of ~1e3-magnitude samples).
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from gen2_rfid_tpu_torch import carry
 
@@ -69,3 +71,14 @@ def assert_same_events(got, want):
                                atol=1e-5 * np.abs(dc_want).max(initial=0.0))
     np.testing.assert_allclose(got.noise_var.numpy()[v],
                                np.asarray(want.noise_var)[v], rtol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module that imports this fixture: its
+    port ops are small, and beside the JAX CPU client's threads and the
+    other test workers more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
