@@ -1,14 +1,17 @@
 """The port's copies of the JAX package's pure-numpy modules match their originals.
 
 The port imports nothing of ``gen2_rfid_tpu``, so it keeps its own copies of
-the configuration, the CRC, the simulator chain, the SigMF reader and
-writer (with the EPC tag-data standards its annotations name) and the
-fixtures' recipes.  These tests hold each copy to its original: the source
-text, every config field and derived property, the simulator's captures and
-the fixtures' bytes.
+the configuration, the CRC, the tag crypto suites, the simulator chain, the
+SigMF reader and writer (with the EPC tag-data standards its annotations
+name), the ranging estimators and the fixtures' recipes.  These tests hold
+each copy to its original: the source text, every relative import (which
+must resolve inside the port), every config field and derived property, the
+simulator's captures and crypto answers, and the fixtures' bytes.
 """
 
+import ast
 import dataclasses
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -29,8 +32,9 @@ from gen2_rfid_tpu_torch.io import sigmf as port_sigmf
 from gen2_rfid_tpu_torch.tools import fixtures as port_fixtures
 
 REPO = Path(__file__).resolve().parents[1]
-COPIES = ["config.py", "protocol/crc.py", "protocol/gen2.py", "protocol/tds.py",
-          "tx/pie.py", "sim/tag.py", "sim/trace.py", "io/sigmf.py"]
+COPIES = ["config.py", "protocol/crc.py", "protocol/crypto.py", "protocol/gen2.py",
+          "protocol/tds.py", "tx/pie.py", "sim/tag.py", "sim/trace.py", "io/sigmf.py",
+          "runtime/ranging.py"]
 
 CONFIGS = [
     dict(),
@@ -54,6 +58,70 @@ def test_copy_source_matches_original(rel):
     port = (REPO / "gen2_rfid_tpu_torch" / rel).read_text()
     ref = (REPO / "gen2_rfid_tpu" / rel).read_text()
     assert port == ref
+
+
+def _relative_imports(rel):
+    """(line, absolute module, imported names) of every ``from .`` / ``from
+    ..`` import in a copied module, the lazy ones inside functions too,
+    resolved against the port's package."""
+    path = REPO / "gen2_rfid_tpu_torch" / rel
+    package = ("gen2_rfid_tpu_torch." + rel[:-3].replace("/", ".")).rsplit(".", 1)[0]
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            name = importlib.util.resolve_name("." * node.level + (node.module or ""), package)
+            yield node.lineno, name, [a.name for a in node.names]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_relative_imports_resolve_in_port(rel):
+    """A verbatim copy can name a module the port lacks (the byte check
+    above cannot see it): every relative import, lazy ones included, must
+    find its module and names inside ``gen2_rfid_tpu_torch``."""
+    for line, name, names in _relative_imports(rel):
+        assert name.startswith("gen2_rfid_tpu_torch."), (rel, line, name)
+        assert importlib.util.find_spec(name) is not None, f"{rel}:{line}: no module {name}"
+        mod = importlib.import_module(name)
+        for n in names:
+            assert hasattr(mod, n) or importlib.util.find_spec(f"{name}.{n}") is not None, (
+                f"{rel}:{line}: {name} has no {n}")
+
+
+def test_copies_have_lazy_imports_to_check():
+    """The scan sees the lazy crypto imports inside Tag's methods."""
+    found = {(name, tuple(names)) for _, name, names in _relative_imports("sim/tag.py")}
+    assert ("gen2_rfid_tpu_torch.protocol", ("crypto",)) in found
+    assert any(n == "gen2_rfid_tpu_torch.protocol.crypto" for n, _ in found)
+
+
+def test_tag_crypto_answers_match():
+    """TAM1 (AES-128 and PRESENT-80), TAM2 and KeyUpdate on the port's Tag
+    return what the reference's returns for the same keys and inputs."""
+    import gen2_rfid_tpu.protocol.crypto as ref_crypto
+
+    keys = {0: bytes(range(16)), 1: bytes(range(10, 20)), 2: bytes(range(5, 21))}
+    rng = np.random.default_rng(3)
+    c96 = rng.integers(0, 2, 96)
+    c48 = rng.integers(0, 2, 48)
+    enc = rng.integers(0, 2, 128)
+    answers = []
+    for tag_mod in (ref_tag, port_tag):
+        tag = tag_mod.Tag.with_id(27, seed=7, aes_keys=dict(keys))
+        got = [tag.tam1_answer(ref_crypto.CSI_AES128, 0, c96),
+               tag.tam1_answer(ref_crypto.CSI_PRESENT80, 1, c48),
+               tag.tam1_answer(ref_crypto.CSI_AES128, 1, c96),           # wrong suite: None
+               tag.tam2_answer(ref_crypto.CSI_AES128, 2, c96, (0, 1), 0, 1),
+               tag.install_key(ref_crypto.CSI_AES128, 2, enc),
+               tag.aes_keys[2],
+               tag.tam1_answer(ref_crypto.CSI_AES128, 2, c96)]
+        answers.append(got)
+    ref, port = answers
+    assert ref[0].size == 128 and ref[1] is not None and ref[2] is None
+    assert ref[3] is not None and ref[4] is True and ref[5] != keys[2]
+    for a, b in zip(ref, port):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(b, a)
+        else:
+            assert b == a
 
 
 @pytest.mark.parametrize("kw", CONFIGS, ids=lambda kw: ",".join(kw) or "default")
