@@ -42,19 +42,18 @@ RISE, QUALIFY, MARKER, QUIET = 1, 2, 4, 8
 _MASK = 0xFFFFFFFF
 
 
-def gate_stack_plain(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
-                     frac: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (2, Ny) -> (Ny,) int32 flags."""
-    n = y2.shape[1]
-    dev = y2.device
+def native_flags_from_amp(amp: torch.Tensor, avg: torch.Tensor, pw_half: int, nt1: int,
+                          frac: float) -> torch.Tensor:
+    """The native gate's packed flags from an amplitude and its windowed
+    average (gen2_rfid_tpu/dsp/gate.py:184, 216-234, 273-274): threshold
+    ``avg * frac``, rise, qualify (the pw/2+1 samples before a rise all
+    below), marker (an nt1+1-long all-above run ends here) and quiet (one
+    starts after the next sample).  (N,) float32 -> (N,) int32."""
+    n = amp.shape[0]
+    dev = amp.device
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
     arange = torch.arange(n, dtype=torch.int32, device=dev)
-    amp = magnitude(y2[0], y2[1])
-    msum = run_sum(amp, win)
-    # A tensor divisor keeps the division IEEE on CUDA too (PyTorch turns
-    # division by a Python scalar into a reciprocal multiply there).
-    avg = msum / torch.tensor(float(win), dtype=torch.float32, device=dev)
     thresh = avg * torch.tensor(frac, dtype=torch.float32, device=dev)
     above = amp > thresh
     prev_above = torch.cat([above.new_zeros(1), above[:-1]])
@@ -69,6 +68,17 @@ def gate_stack_plain(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
     i32 = torch.int32
     return (rise.to(i32) + QUALIFY * qualify.to(i32) + MARKER * marker.to(i32)
             + QUIET * quiet.to(i32))
+
+
+def gate_stack_plain(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
+                     frac: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (2, Ny) -> (Ny,) int32 flags:
+    |y|, its ``run_sum`` average, then ``native_flags_from_amp``."""
+    amp = magnitude(y2[0], y2[1])
+    # A tensor divisor keeps the division IEEE on CUDA too (PyTorch turns
+    # division by a Python scalar into a reciprocal multiply there).
+    avg = run_sum(amp, win) / torch.tensor(float(win), dtype=torch.float32, device=y2.device)
+    return native_flags_from_amp(amp, avg, pw_half, nt1, frac)
 
 
 # ---- the warp stream, modelled on the CPU ---------------------------------
