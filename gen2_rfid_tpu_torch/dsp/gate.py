@@ -4,9 +4,10 @@ PyTorch counterpart of ``gen2_rfid_tpu/dsp/gate.py``, the block-parallel
 re-design of the reference gate's per-sample FSM (``gate_impl.cc:85-200``).
 
 * Native mode reads the per-sample flags (rise, qualify, marker,
-  quiet_after) packed by the gate-stack kernel (kernels/gate_stack.py);
-  from them it counts the PIE pulses since the last reset and solves the
-  trigger.
+  quiet_after) packed by the gate-stack kernel (kernels/gate_stack.py), or,
+  for a given amplitude such as the channel-summed envelope of a diversity
+  decode, by ``native_flags_from_amp``; from them it counts the PIE pulses
+  since the last reset and solves the trigger.
 * Compat mode keeps the reference's tie-preserving edge state (the last
   decisive sample's sign, by cummax), edge runs by cummax/cummin and the
   two-pass reset fixed point, from |y| and its windowed average.
@@ -26,8 +27,10 @@ import torch
 
 from ..config import ReaderConfig
 from ..kernels.gate_scan import gate_scan_for_cfg
-from ..kernels.gate_stack import MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg
-from ..runtime.frames import gather_aligned_windows
+from ..kernels.gate_stack import (
+    MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg, native_flags_from_amp)
+from .filters import run_sum
+from ..runtime.frames import gather_aligned_windows_multi
 
 
 class GateEvents(NamedTuple):
@@ -44,9 +47,13 @@ class GateEvents(NamedTuple):
 def _event_window_stats(y: torch.Tensor, ev_c: torch.Tensor, w: int):
     """(dc mean, noise variance) over the w samples ending at each event, in
     the centered per-event form (gate.py:53-85): granule-aligned rows are
-    gathered and the exact w-window is selected with a mask."""
-    start = torch.clamp(ev_c - (w - 1), min=0)
-    win = gather_aligned_windows(y, start, w)          # (cap, w + g)
+    gathered and the exact w-window is selected with a mask.  y (n,) gives
+    (E,) each; y (C, n), C channels at the same events, gives (C, E)."""
+    y_c = y if y.dim() == 2 else y[None]
+    c = y_c.shape[0]
+    start = torch.clamp(ev_c - (w - 1), min=0).repeat(c)
+    chans = torch.arange(c, device=y.device).repeat_interleave(ev_c.shape[0])
+    win = gather_aligned_windows_multi(y_c, start, chans, w)    # (C * E, w + g)
     g = win.shape[1] - w
     off = start - (start // g) * g                      # in-row start offset
     col = torch.arange(w + g, dtype=torch.int32, device=y.device)[None, :]
@@ -55,6 +62,8 @@ def _event_window_stats(y: torch.Tensor, ev_c: torch.Tensor, w: int):
     dc = (win * mw).sum(dim=1) / w
     cen = (win - dc[:, None]) * mw
     nv = torch.clamp((cen.real ** 2 + cen.imag ** 2).sum(dim=1) / w, min=1e-12)
+    if y.dim() == 2:
+        return dc.reshape(c, -1), nv.reshape(c, -1)
     return dc, nv
 
 
@@ -177,9 +186,11 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     """Detect reader-command-over events in a post-decimation I/Q block.
 
     y: (N,) complex64.  Native mode reads ``flags``, the packed gate-stack
-    flags of y, computed here from y when not given (the kernel on CUDA, its
-    plain version on the CPU).  Compat mode reads ``amp`` and ``avg``, |y|
-    and its windowed average from the front end, which the caller passes."""
+    flags of y; without them it takes the flags of ``amp`` when given, its
+    average ``avg`` or else ``run_sum(amp, win) / win`` (gate.py:170-184), and
+    otherwise computes them from y (the kernel on CUDA, its plain version on
+    the CPU).  Compat mode reads ``amp`` and ``avg``, |y| and its windowed
+    average from the front end, which the caller passes."""
     n = y.shape[0]
     dev = y.device
     i32 = torch.int32
@@ -188,7 +199,15 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
         _check_amp_avg(amp, avg, "compat gate_detect")
         trig, pulses_at = _compat_triggers(amp, avg, cfg)
     else:
-        if flags is None:
+        if flags is None and amp is not None:
+            if avg is None:
+                avg = run_sum(amp, cfg.win_length) / torch.tensor(
+                    float(cfg.win_length), dtype=torch.float32, device=dev)
+            flags = native_flags_from_amp(amp, avg, cfg.n_samples_pw // 2, nt1,
+                                          cfg.thresh_fraction)
+        elif flags is None:
+            if avg is not None:
+                raise ValueError("native gate_detect takes avg only with the amp it averages")
             flags = gate_stack_for_cfg(torch.stack([y.real, y.imag]).contiguous(), cfg)
         trig, pulses_at = _native_triggers(flags, cfg)
     arange = torch.arange(n, dtype=i32, device=dev)
