@@ -77,11 +77,24 @@ then:
 12. stream: the golden trace in 200,000-sample chunks equal to the batch
     decode (two kernel launches a chunk), the bench capture 640 / 640 at the
     default 2,000,000-sample chunk, and a mid-stream checkpoint resumed in a
-    fresh decoder to equal stats; timed.
+    fresh decoder to equal stats; timed;
+13. antenna-diversity MRC, cell mrc4: a 4-antenna lambda/4 array at a 25
+    degree bearing, 80 rounds a channel tiled 8 times (4 x 9.7 M samples),
+    decoded through exactly one gate_front launch a channel and no other
+    kernel, 640 / 640 EPCs of tag 27, the bearing from the per-antenna
+    phases within 1 degree; a two-channel scene CUDA == CPU; timed and
+    profiled;
+14. EPC-window SIC, cell sic2: two same-seed tags at 80 rounds tiled 8
+    times; the decode reads the JAX package's 640 EPCs and
+    ``recover_epc_collisions`` its 632 second frames, each in the ground
+    truth, through one gate_front launch; nothing on the single-tag bench
+    capture; the 4-round scene CUDA == CPU; recovery timed beside the
+    decode, with the device time of its cuBLAS contractions.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's and gate_stack's entries
-carry their Miller launch shapes under ``miller``), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
+carry their Miller launch shapes under ``miller``; gate_front's its mrc4 and
+sic2 recovery launches), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package ``gen2_rfid_tpu``.
 """
@@ -199,7 +212,8 @@ def stage_breakdown(x2, cfg, reps=5, label="stages"):
 def device_profile(fn, reps=3, top=12, label="profile"):
     """torch.profiler over reps decodes: device time by kernel, the share
     of the window's wall time the device was busy, and the device ops
-    (kernels, copies, fills) a decode."""
+    (kernels, copies, fills) a decode.  Returns the rows (device us over
+    the reps, calls, name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,7 +232,7 @@ def device_profile(fn, reps=3, top=12, label="profile"):
     busy_us = sum(r[0] for r in rows)
     if not rows:
         log(f"[{label}] the profiler recorded no device time")
-        return
+        return rows
     n_ops = sum(r[1] for r in rows) // reps
     log(f"[{label}] {reps} decodes: wall {wall_us / reps / 1e3:.3f} ms/decode, "
         f"device busy {busy_us / reps / 1e3:.3f} ms/decode "
@@ -226,6 +240,7 @@ def device_profile(fn, reps=3, top=12, label="profile"):
         f"{n_ops} device ops/decode")
     for t, count, key in sorted(rows, reverse=True)[:top]:
         log(f"[{label}] {t / reps:9.1f} us/decode {count // reps:5d} calls  {key[:90]}")
+    return rows
 
 
 def front_bound(n, ny, taps, win, dcw):
@@ -498,6 +513,218 @@ def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b):
         f"({iq_b.size / ms / 1e3:.1f} Msamples/s)")
     device_profile(lambda: StreamDecoder(cfg_b).decode(iter([iq_b])), reps=2, top=8,
                    label="profile stream")
+
+
+# mrc4: tests/test_ranging.py::test_aoa_from_diversity_decode's array at full
+# size: tag 27 seed 7 on four antennas of a lambda/4 line at a 25 degree
+# bearing, 80 rounds a channel, cut to the shortest, tiled 8 times.
+MRC_BEARING_DEG = 25.0
+# sic2: tests/test_collision.py::test_batch_epc_sic_recovers_second_tags's
+# scene at 80 rounds.  The JAX package's counts for one tile, on the CPU:
+# 80 EPCs read by the decode (tag 0x41), 79 second frames recovered (tag
+# 0x77; the ACK of round 10 keeps only its first frame).
+SIC_PRIMARY, SIC_EXTRA = 80, {0x77: 79}
+
+
+def mrc_array(cfg, n_rounds, theta_deg=MRC_BEARING_DEG):
+    """(antenna positions, per-antenna complex captures cut to the
+    shortest) of the lambda/4 array."""
+    import numpy as np
+
+    from gen2_rfid_tpu_torch.runtime.ranging import C_LIGHT
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    f = cfg.freq_hz
+    pos = [k * C_LIGHT / f / 4 for k in range(4)]
+    s = np.sin(np.radians(theta_deg))
+    chans = []
+    for x in pos:
+        tag = Tag.with_id(27, seed=7, backscatter=0.08 * np.exp(1j * (0.4 + 2 * np.pi * f * x * s
+                                                                      / C_LIGHT)))
+        chans.append(synthesize_inventory(cfg, [tag], n_rounds=n_rounds,
+                                          seed=int(x * 1e4) + 5).iq)
+    n = min(c.size for c in chans)
+    return pos, [c[:n] for c in chans]
+
+
+def mrc_same_as_cpu(label, cuda_run, cpu_run):
+    """A diversity decode on the card against the CPU's: every stats field
+    and the event table's own fields equal; the decode products equal on
+    valid events whose window fits (an invalid event's windows are padding,
+    where the period search meets candidates equal but for summation order:
+    tests/torch_compare.py); h_chan within 1e-4 of its largest magnitude."""
+    import torch
+
+    (st_g, dec_g, h_g), (st_c, dec_c, h_c) = cuda_run, cpu_run
+    for f in st_g._fields:
+        check(torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)),
+              f"{label} InventoryStats.{f}: CUDA != CPU")
+    v = dec_c.valid
+    rows = {f: v & dec_c.rn16_fits for f in ("rn16_bits", "slot_state")}
+    rows.update({f: v & dec_c.epc_fits for f in ("epc_bits", "epc_pass", "tag_id")})
+    for f in dec_g._fields:
+        a, b = getattr(dec_g, f).cpu(), getattr(dec_c, f)
+        if a.dtype in (torch.int32, torch.bool):
+            keep = rows.get(f, torch.ones_like(v))
+            check(torch.equal(a[keep], b[keep]), f"{label} DecodedEvents.{f}: CUDA != CPU")
+    keep = v & dec_c.rn16_fits & dec_c.epc_fits
+    err = float((h_g.cpu()[keep] - h_c[keep]).abs().max() / h_c[keep].abs().max())
+    check(err <= 1e-4, f"{label} h_chan: CUDA off the CPU by {err:.3g} of its largest")
+    log(f"[{label}] CUDA == CPU on every stats and int/bool event field; "
+        f"h_chan max|cuda-cpu| / max|cpu| = {err:.3g}")
+
+
+def phase_mrc(dev, rounds=80, tiles=8):
+    """Phase 13, cell mrc4: the 4-antenna diversity decode at full size
+    through one gate_front launch a channel and no other kernel, its
+    bearing, CUDA against CPU on a small two-channel scene, timed and
+    profiled.  Returns the launch counts and the decode's ms."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import carry, kernels
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.runtime.diversity import (
+        decode_capture_mrc_full, decode_capture_mrc_planar)
+    from gen2_rfid_tpu_torch.runtime.inventory import to_planar
+    from gen2_rfid_tpu_torch.runtime.ranging import aoa_from_mrc
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    cfg = ReaderConfig(max_events=1536)
+    pos, chans = mrc_array(cfg, rounds)
+    x = torch.stack([to_planar(np.concatenate([c] * tiles)) for c in chans]).to(dev)
+    n_chan, _, n = x.shape
+    log(f"[mrc4] {n_chan} channels x N={n} ({x.numel() * 4 / 1e6:.0f} MB float32), "
+        f"max_events={cfg.max_events}")
+    kernels.reset_launches()
+    st, dec, h = decode_capture_mrc_planar(x, cfg)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    log(f"[mrc4] launches {got}")
+    check(got == {"gate_front": n_chan, "gate_stack": 0, "gate_scan": 0, "probe": 0},
+          f"mrc4: {got}, expected one gate_front a channel and nothing else")
+    want = rounds * tiles
+    check(int(st.n_epc_correct) == want and int(st.tag_reads[27]) == want
+          and unique_tags(st) == 1,
+          f"mrc4: {int(st.n_epc_correct)} EPCs, expected {want} of tag 27")
+    # runtime/ranging.py is numpy: it takes CPU tensors.
+    est = aoa_from_mrc(carry.decoded_from_numpy(carry.decoded_to_numpy(dec)), h.cpu(), pos,
+                       cfg.freq_hz)[27]
+    log(f"[mrc4] {int(st.n_epc_correct)} / {want} EPCs of tag 27; bearing {est['aoa_deg']:.4f} "
+        f"deg (true {MRC_BEARING_DEG}), fit residual {est['resid_rad']:.4f} rad")
+    check(abs(est["aoa_deg"] - MRC_BEARING_DEG) < 1.0, "mrc4: bearing off by a degree or more")
+    ms = cuda_ms(lambda: decode_capture_mrc_planar(x, cfg), 5)
+    log(f"[time] mrc4 decode {ms:.3f} ms for {n_chan} x {n} samples ({n_chan * n / ms / 1e3:.1f} "
+        f"Msamples/s over all channels, {want / ms * 1e3:.0f} EPC/s)")
+    device_profile(lambda: decode_capture_mrc_planar(x, cfg), reps=2, top=8, label="profile mrc4")
+    del x
+    torch.cuda.empty_cache()
+
+    small = ReaderConfig(max_events=64)
+    iqs = [synthesize_inventory(small, [Tag.with_id(27, seed=7, backscatter=bs)], n_rounds=4,
+                                noise=0.004, seed=seed).iq
+           for bs, seed in ((0.08 * np.exp(0.4j), 100), (0.08 * np.exp(-1.7j), 200))]
+    run_g = decode_capture_mrc_full(iqs, small)
+    check(int(run_g[0].n_epc_correct) == 4, "mrc two-channel scene: not 4 EPCs on CUDA")
+    mrc_same_as_cpu("mrc two-channel", run_g, decode_capture_mrc_full(iqs, small, device="cpu"))
+    return got, ms
+
+
+def sic_scene(n_rounds):
+    """Tags 0x41 and 0x77 with one seed: the same slots and RN16s, so every
+    ACK window holds both EPC frames.  (trace, tags)"""
+    import numpy as np
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    rng = np.random.default_rng(31)
+
+    def mk(tid, bs):
+        epc = rng.integers(0, 2, 96)
+        for k in range(8):
+            epc[88 + k] = (tid >> (7 - k)) & 1
+        return Tag(epc96=epc, seed=5, backscatter=bs)
+
+    tags = [mk(0x41, 0.09 + 0.02j), mk(0x77, 0.04 - 0.035j)]
+    return synthesize_inventory(ReaderConfig(max_events=64), tags, n_rounds=n_rounds, seed=12)
+
+
+def phase_sic(dev, x2_bench, cfg_bench, tiles=8):
+    """Phase 14, cell sic2: EPC-window SIC after the decode of the same-seed
+    scene at full size, through one gate_front launch; the JAX package's
+    counts, frames from the ground truth, nothing on the single-tag bench
+    capture, the small scene CUDA against CPU; timed and profiled.  Returns
+    the recovery's launch counts and its ms."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.runtime.inventory import (
+        decode_capture, decode_capture_planar, to_planar)
+    from gen2_rfid_tpu_torch.runtime.recovery import extra_tag_reads, recover_epc_collisions
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    tr = sic_scene(80)
+    truth = {tuple(int(b) for b in fr)
+             for e in tr.events if e.kind == "ack" and e.epc_frames for _, fr in e.epc_frames}
+    cfg = ReaderConfig(max_events=1536)
+    x2 = to_planar(np.concatenate([tr.iq] * tiles)).to(dev)
+    st, dec = decode_capture_planar(x2, cfg)
+    n_valid = int((dec.valid & dec.epc_fits).sum())
+    log(f"[sic2] N={x2.shape[1]}, {n_valid} valid events with an EPC window; decode reads "
+        f"{int(st.n_epc_correct)} EPCs (tag 0x41: {int(st.tag_reads[0x41])})")
+    check(int(st.n_epc_correct) == SIC_PRIMARY * tiles == int(st.tag_reads[0x41]),
+          f"sic2: the decode read {int(st.n_epc_correct)} EPCs, expected {SIC_PRIMARY * tiles}")
+    kernels.reset_launches()
+    rec = recover_epc_collisions(x2, dec, cfg)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    extra = extra_tag_reads(rec)
+    want = {t: c * tiles for t, c in SIC_EXTRA.items()}
+    log(f"[sic2] recovery launches {got}; extra reads {extra} (expected {want})")
+    check(got == {"gate_front": 1, "gate_stack": 0, "gate_scan": 0, "probe": 0},
+          f"sic2 recovery: {got}, expected one gate_front launch and nothing else")
+    check(extra == want, f"sic2: extra reads {extra}, expected {want}")
+    check(all(tuple(int(b) for b in fr) in truth for _, _, fr in rec),
+          "sic2: a recovered frame is not in the simulator's ground truth")
+    decode_ms = cuda_ms(lambda: decode_capture_planar(x2, cfg), 5)
+    rec_ms = cuda_ms(lambda: recover_epc_collisions(x2, dec, cfg), 5)
+    log(f"[time] sic2 decode {decode_ms:.3f} ms, recovery {rec_ms:.3f} ms over {n_valid} "
+        f"windows ({len(rec)} frames recovered)")
+    rows = device_profile(lambda: recover_epc_collisions(x2, dec, cfg), reps=2, top=10,
+                          label="profile sic2 recovery")
+    gemm = [r for r in rows if any(k in r[2].lower() for k in ("gemm", "gemv", "xmma"))]
+    solve = [r for r in rows if any(k in r[2].lower() for k in ("getrf", "getrs", "trsm", "lu_"))]
+    log(f"[sic2] SIC contractions (cuBLAS gemm and gemv kernels): "
+        f"{sum(r[0] for r in gemm) / 2 / 1e3:.3f} ms/recovery in "
+        f"{sum(r[1] for r in gemm) // 2} launches; Gram solves "
+        f"{sum(r[0] for r in solve) / 2 / 1e3:.3f} ms in {sum(r[1] for r in solve) // 2}")
+    del x2, dec
+    torch.cuda.empty_cache()
+
+    _, dec_b = decode_capture_planar(x2_bench, cfg_bench)
+    none = recover_epc_collisions(x2_bench, dec_b, cfg_bench)
+    log(f"[sic2] the single-tag bench capture: {len(none)} frames recovered")
+    check(none == [], "recovery found second frames on the single-tag bench capture")
+
+    small = sic_scene(4)
+    cfg_s = ReaderConfig(max_events=64)
+    runs = []
+    for d in ("cuda", "cpu"):
+        _, dec_s = decode_capture(small.iq, cfg_s, device=d)
+        runs.append(recover_epc_collisions(small.iq, dec_s, cfg_s, device=d))
+    check(len(runs[0]) == len(runs[1]) == 4
+          and all(a[:2] == b[:2] and np.array_equal(a[2], b[2]) for a, b in zip(*runs)),
+          "sic 4-round scene: CUDA recovery != CPU recovery")
+    log("[sic 4 rounds] CUDA == CPU on every recovered (event, tag, frame)")
+    return got, rec_ms
 
 
 def main() -> int:
@@ -959,6 +1186,10 @@ def main() -> int:
     phase_wideband(dev, both, fmt)
     phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b)
 
+    # ---- phases 13-14: antenna-diversity MRC, EPC-window SIC ----
+    mrc_launches, _ = phase_mrc(dev)
+    sic_launches, _ = phase_sic(dev, x2_b, cfg_b)
+
     # ms, plain_ms and library_ms are written-flush times (the earlier
     # yardstick); the *_read keys the read-flush ones (L2 clean before each
     # run).  gate_scan's plain version is a host loop timed once, unflushed.
@@ -970,7 +1201,8 @@ def main() -> int:
          "ms": front_t["write"], "plain_ms": front_plain_t["write"], "bound_ms": front_b,
          "bound_by": front_by, "library_ms": None, "ms_read": front_t["read"],
          "plain_ms_read": front_plain_t["read"], "library_ms_read": None,
-         "miller": miller_shapes["gate_front"]},
+         "miller": miller_shapes["gate_front"], "launches_mrc4": mrc_launches["gate_front"],
+         "launches_sic2_recovery": sic_launches["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",

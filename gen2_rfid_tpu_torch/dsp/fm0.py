@@ -148,34 +148,52 @@ def _energy_starts(index: torch.Tensor, w: int, cfg: ReaderConfig):
     return torch.clamp(torch.clamp(index.to(torch.int64), max=w - k), min=0)
 
 
+def epc_period(magn2: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_sel (E,), T_half (E,)): the period candidate with the most
+    |frame|^2 energy at its probe positions past each index, first maximum
+    (fm0.py:291-316).  magn2 (E, W) float32."""
+    dev = magn2.device
+    cand, _ = epc_period_grid(cfg)
+    probes, _ = _energy_positions(cfg)
+    e0 = _energy_starts(index, magn2.shape[1], cfg)
+    epos = e0[:, None, None] + torch.as_tensor(probes, device=dev)[None]
+    energy = magn2[torch.arange(magn2.shape[0], device=dev)[:, None, None],
+                   epos].sum(dim=2)                       # (E, steps)
+    t_sel = torch.argmax(energy, dim=1)
+    return t_sel, torch.as_tensor(cand, device=dev)[t_sel]
+
+
+def epc_diff_samples(frames: torch.Tensor, index: torch.Tensor, t_sel: torch.Tensor,
+                     cfg: ReaderConfig) -> torch.Tensor:
+    """Differential samples (E, ..., n_bits) at period t_sel's truncated
+    positions past each (clamped) index (fm0.py:318-337), for frames
+    (E, ..., W): a diversity decode's channels share an index and period."""
+    i1, i2, span = _bit_position_tables(cfg)
+    dev = frames.device
+    # dynamic_slice semantics: the start is clamped into [0, w - span].
+    sl_start = torch.clamp(index.to(torch.int64), 0, frames.shape[-1] - span)
+
+    def at(tab):
+        p = sl_start[:, None] + torch.as_tensor(tab, device=dev)[t_sel]      # (E, n_bits)
+        p = p.reshape((p.shape[0],) + (1,) * (frames.dim() - 2) + (p.shape[1],))
+        return frames.gather(-1, p.expand(frames.shape[:-1] + (p.shape[-1],)))
+
+    return at(i1) - at(i2)
+
+
 def epc_detect_soft(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
                     h_est: torch.Tensor, cfg: ReaderConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode the EPC payload bits per frame, with per-decision
     reliabilities (fm0.py:259-344).
 
-    The symbol period is the candidate with the most |frame|^2 energy at its
-    probe positions (first maximum); the bits are the differential samples at
-    that period's truncated positions, sliced coherently (or by the tracked
-    slicer).  Returns (bits, T_half, rel (E, n_bits)) where rel[:, j] is the
-    |decision statistic| of differential sample j."""
-    dev = frames.device
-    cand, _ = epc_period_grid(cfg)
-    w = magn2.shape[1]
-    probes, _ = _energy_positions(cfg)
-    e0 = _energy_starts(index, w, cfg)
-    epos = e0[:, None, None] + torch.as_tensor(probes, device=dev)[None]
-    energy = magn2[torch.arange(magn2.shape[0], device=dev)[:, None, None],
-                   epos].sum(dim=2)                       # (E, steps)
-    t_sel = torch.argmax(energy, dim=1)
-    t_half = torch.as_tensor(cand, device=dev)[t_sel]
-
-    i1, i2, span = _bit_position_tables(cfg)
-    # dynamic_slice semantics: the start is clamped into [0, w - span].
-    sl_start = torch.clamp(index.to(torch.int64), 0, w - span)
-    p1 = sl_start[:, None] + torch.as_tensor(i1, device=dev)[t_sel]
-    p2 = sl_start[:, None] + torch.as_tensor(i2, device=dev)[t_sel]
-    d = frames.gather(1, p1) - frames.gather(1, p2)
+    The symbol period is ``epc_period``'s; the bits are the differential
+    samples at that period's truncated positions, sliced coherently (or by
+    the tracked slicer).  Returns (bits, T_half, rel (E, n_bits)) where
+    rel[:, j] is the |decision statistic| of differential sample j."""
+    t_sel, t_half = epc_period(magn2, index, cfg)
+    d = epc_diff_samples(frames, index, t_sel, cfg)
     if _tracking(cfg):
         signs, rel = _track_and_slice(d, h_est)
     else:

@@ -29,8 +29,8 @@ from ..config import ReaderConfig
 from ..kernels.gate_scan import gate_scan_for_cfg
 from ..kernels.gate_stack import (
     MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg, native_flags_from_amp)
-from .filters import run_sum
 from ..runtime.frames import gather_aligned_windows_multi
+from .filters import run_sum
 
 
 class GateEvents(NamedTuple):

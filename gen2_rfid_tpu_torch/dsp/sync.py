@@ -35,6 +35,27 @@ def sync_positions(cfg: ReaderConfig):
     return hb_pos, chips, cfg.sync_search
 
 
+def data_shift(cfg: ReaderConfig) -> int:
+    """Samples from the correlation offset to the data index: the preamble
+    and half a bit (tag_decoder_impl.cc:107)."""
+    return int(cfg.tag_preamble_bits * cfg.n_samples_tag_bit + cfg.n_samples_tag_bit / 2.0)
+
+
+def preamble_search(frames: torch.Tensor, cfg: ReaderConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(correlation power, channel mean), each (..., n_off), of the preamble
+    at every search offset of frames (..., W) complex64."""
+    hb_pos, chips, n_off = sync_positions(cfg)
+    dev = frames.device
+    pos = torch.as_tensor(hb_pos, device=dev)[:, None] + torch.arange(n_off, device=dev)
+    x = frames[..., pos]                                 # (..., n_hb, n_off)
+    pm = torch.as_tensor(_PREAMBLE_PM, device=dev)[:, None]
+    corr_re = (x.real * pm).sum(dim=-2)
+    corr_im = (x.imag * pm).sum(dim=-2)
+    h_all = x[..., torch.as_tensor(chips, device=dev), :].mean(dim=-2)
+    return corr_re ** 2 + corr_im ** 2, h_all
+
+
 def tag_sync(frames: torch.Tensor, cfg: ReaderConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Locate the preamble and estimate the channel for a batch of frames.
@@ -42,17 +63,7 @@ def tag_sync(frames: torch.Tensor, cfg: ReaderConfig
     frames: (E, W) complex64 decode windows.  Returns (data_index (E,) int32,
     h_est (E,) complex64); data_index points half a bit past the preamble
     end (tag_decoder_impl.cc:107)."""
-    hb_pos, chips, n_off = sync_positions(cfg)
-    dev = frames.device
-    pos = torch.as_tensor(hb_pos, device=dev)[:, None] + torch.arange(n_off, device=dev)
-    x = frames[:, pos]                                   # (E, n_hb, n_off)
-    pm = torch.as_tensor(_PREAMBLE_PM, device=dev)[None, :, None]
-    corr_re = (x.real * pm).sum(dim=1)
-    corr_im = (x.imag * pm).sum(dim=1)
-    power = corr_re ** 2 + corr_im ** 2
+    power, h_all = preamble_search(frames, cfg)
     max_index = torch.argmax(power, dim=1)
-    h_all = x[:, torch.as_tensor(chips, device=dev), :].mean(dim=1)   # (E, n_off)
     h_est = h_all.gather(1, max_index[:, None])[:, 0]
-    half = cfg.n_samples_tag_bit / 2.0
-    shift = int(cfg.tag_preamble_bits * cfg.n_samples_tag_bit + half)
-    return (max_index + shift).to(torch.int32), h_est
+    return (max_index + data_shift(cfg)).to(torch.int32), h_est

@@ -337,3 +337,103 @@ def test_stream_on_card(cuda):
         assert kernels.launches[k] == before[k] + sd._chunk_no
     _same_int_fields(st, decode_capture(tr.iq, CFG, device="cpu")[0])
     assert int(st.n_epc_correct) == 70
+
+
+# ---- diversity MRC and EPC-window SIC ---------------------------------------------
+
+def _two_channel_scene():
+    """tests/test_diversity.py::test_mrc_clean_exact's capture pair."""
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    cfg = ReaderConfig(max_events=64)
+    return cfg, [synthesize_inventory(cfg, [Tag.with_id(27, seed=7, backscatter=bs)], n_rounds=4,
+                                      noise=0.004, seed=seed).iq
+                 for bs, seed in ((0.08 * np.exp(0.4j), 100), (0.08 * np.exp(-1.7j), 200))]
+
+
+def test_mrc_decode_on_card(cuda):
+    """One gate_front launch a channel and no other kernel; every stats
+    field and the event table equal to the CPU decode, the decode products
+    on valid events whose windows fit (tests/torch_compare.py), h_chan
+    within 1e-4 of its largest magnitude."""
+    from gen2_rfid_tpu_torch.runtime.diversity import decode_capture_mrc_full
+
+    cfg, iqs = _two_channel_scene()
+    before = dict(kernels.launches)
+    st, dec, h = decode_capture_mrc_full(iqs, cfg)
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "gate_front": 2, "gate_stack": 0, "gate_scan": 0, "probe": 0}
+    assert int(st.n_epc_correct) == 4
+    st_c, dec_c, h_c = decode_capture_mrc_full(iqs, cfg, device="cpu")
+    _same_int_fields(st, st_c)
+    v = dec_c.valid
+    rows = {f: v & dec_c.rn16_fits for f in ("rn16_bits", "slot_state")}
+    rows.update({f: v & dec_c.epc_fits for f in ("epc_bits", "epc_pass", "tag_id")})
+    for f in dec._fields:
+        a, b = getattr(dec, f).cpu(), getattr(dec_c, f)
+        if a.dtype in (torch.int32, torch.bool):
+            keep = rows.get(f, torch.ones_like(v))
+            assert torch.equal(a[keep], b[keep]), f
+    keep = v & dec_c.rn16_fits & dec_c.epc_fits
+    assert float((h.cpu()[keep] - h_c[keep]).abs().max()) <= 1e-4 * float(h_c[keep].abs().max())
+
+
+def _sic_scene():
+    """tests/test_collision.py::test_batch_epc_sic_recovers_second_tags's
+    capture: tags 0x41 and 0x77 with one seed answer every ACK together."""
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    rng = np.random.default_rng(31)
+
+    def mk(tid, bs):
+        epc = rng.integers(0, 2, 96)
+        for k in range(8):
+            epc[88 + k] = (tid >> (7 - k)) & 1
+        return Tag(epc96=epc, seed=5, backscatter=bs)
+
+    cfg = ReaderConfig(max_events=64)
+    return cfg, synthesize_inventory(cfg, [mk(0x41, 0.09 + 0.02j), mk(0x77, 0.04 - 0.035j)],
+                                     n_rounds=4, seed=12)
+
+
+def test_recover_epc_collisions_on_card(cuda):
+    """One gate_front launch inside the recovery; the same (event, tag,
+    frame) tuples as the CPU run: tag 0x77 in each of the 4 ACK windows."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture
+    from gen2_rfid_tpu_torch.runtime.recovery import extra_tag_reads, recover_epc_collisions
+
+    cfg, tr = _sic_scene()
+    _, dec = decode_capture(tr.iq, cfg)
+    before = kernels.launches["gate_front"]
+    got = recover_epc_collisions(tr.iq, dec, cfg)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_front"] == before + 1
+    _, dec_c = decode_capture(tr.iq, cfg, device="cpu")
+    want = recover_epc_collisions(tr.iq, dec_c, cfg, device="cpu")
+    assert extra_tag_reads(got) == {0x77: 4}
+    assert [(e, t) for e, t, _ in got] == [(e, t) for e, t, _ in want]
+    assert all(np.array_equal(a[2], b[2]) for a, b in zip(got, want))
+
+
+def test_sic_refuses_tf32_and_recovery_turns_it_off(cuda):
+    """The SIC library calls raise on CUDA while TF32 matmuls are allowed;
+    the entry point recover_epc_collisions turns them off and runs."""
+    from gen2_rfid_tpu_torch.dsp.collision import epc_sic_batch, rn16_sic_batch
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture
+    from gen2_rfid_tpu_torch.runtime.recovery import recover_epc_collisions
+
+    cfg, tr = _sic_scene()
+    frames = torch.zeros((2, cfg.epc_window + 8), dtype=torch.complex64, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for fn in (rn16_sic_batch, epc_sic_batch):
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                fn(frames, cfg)
+        _, dec = decode_capture(tr.iq, cfg)
+        assert len(recover_epc_collisions(tr.iq, dec, cfg)) == 4
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
