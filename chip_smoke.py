@@ -89,11 +89,26 @@ then:
     ``recover_epc_collisions`` its 632 second frames, each in the ground
     truth, through one gate_front launch; nothing on the single-tag bench
     capture; the 4-round scene CUDA == CPU; recovery timed beside the
-    decode, with the device time of its cuBLAS contractions.
+    decode, with the device time of its cuBLAS contractions;
+15. the CLI (``gen2_rfid_tpu_torch.apps.reader``) on the card: ``golden``
+    then ``decode`` as ``python -m`` in a child process (the golden tuple);
+    the bench-size capture written to a file and run through ``main`` in
+    this process: ``decode --max-events 1536`` (640 / 640 through one
+    gate_front and one gate_stack launch), ``--chunked`` (the same report,
+    one launch of each a chunk), ``--report`` (640 records),
+    ``--exact-gate`` (one gate_scan launch), each timed as a whole command
+    and, where it calls ``decode_capture``, that call alone, beside the
+    file read and the host-to-device copy timed alone; mrc4 under
+    ``--mrc --antenna-pos`` (640 / 640, bearing within 1 degree), sic2
+    under ``--epc-sic`` (640 read, 632 of tag 0x77 recovered), wideband8
+    under ``--wideband 8`` (phase 11's counts), ``range`` over three hop
+    captures equal to ``--device cpu`` to 1 mm, ``txspec``, and the native
+    C++ engine (host) on the golden trace.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's and gate_stack's entries
 carry their Miller launch shapes under ``miller``; gate_front's its mrc4 and
-sic2 recovery launches), the card's name and power limit, and last
+sic2 recovery launches; each its launches in the CLI's decode under
+``launches_cli``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package ``gen2_rfid_tpu``.
@@ -727,6 +742,263 @@ def phase_sic(dev, x2_bench, cfg_bench, tiles=8):
     return got, rec_ms
 
 
+# Phase 15: the CLI's files go here (inside the checkout, ignored by git).
+CLI_DIR = REPO / "build" / "chip_smoke_cli"
+HOPS_MHZ = (902.75, 915.25, 927.25)
+
+
+def cli(argv, reps=1, timed_decode=False):
+    """``gen2_rfid_tpu_torch.apps.reader.main(argv)`` in this process with its
+    standard output captured, ``reps`` times: (return code, the last run's
+    output, the median host wall ms of the whole command, and with
+    ``timed_decode`` the median ms of the ``decode_capture`` calls inside
+    it, each ended by a synchronize).  The output is logged."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gen2_rfid_tpu_torch.apps import reader
+    from gen2_rfid_tpu_torch.runtime import inventory
+
+    inner = []
+    real = inventory.decode_capture
+
+    def decode_capture(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        inner.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    walls = []
+    if timed_decode:
+        inventory.decode_capture = decode_capture
+    try:
+        for _ in range(reps):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = reader.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        inventory.decode_capture = real
+    text = buf.getvalue()
+    shown = " ".join(Path(a).name if "/" in str(a) else str(a) for a in argv)
+    for line in text.strip("\n").splitlines():
+        log(f"[cli {shown}] {line}")
+    med = sorted(walls)[len(walls) // 2]
+    dec_ms = sorted(inner)[len(inner) // 2] if inner else None
+    return rc, text, med, dec_ms
+
+
+def cli_launches(argv, want, label):
+    """One CLI run with the counts set to 0 just before it and read just
+    after; fails unless they are ``want``.  (rc, output)"""
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+
+    kernels.reset_launches()
+    rc, text, _, _ = cli(argv)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    log(f"[cli {label}] launches {got}")
+    check(rc == 0, f"cli {label}: exit {rc}")
+    check(got == {**{k: 0 for k in got}, **want}, f"cli {label}: launches {got}, expected {want}")
+    return got, text
+
+
+def report_lines(text):
+    """The inventory report of a decode's output: its lines but the
+    wall-time line."""
+    return [ln for ln in text.splitlines() if not ln.startswith("| Decoded ")]
+
+
+def phase_cli(dev, iq_b, tr_g):
+    """Phase 15: the CLI on the card.  The module entry point in a child
+    process (golden, then its decode); the bench-size capture through
+    ``main`` in process (decode, --chunked, --report, --exact-gate), timed
+    with the file read and the host-to-device copy apart; mrc4 under --mrc,
+    sic2 under --epc-sic, wideband8 under --wideband 8, range over three hop
+    captures against --device cpu, txspec, and the native engine on the
+    golden trace.  Returns the bench decode's and the exact gate's launch
+    counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.io.tracefile import read_trace, write_trace
+    from gen2_rfid_tpu_torch.native import NativeEngine
+    from gen2_rfid_tpu_torch.runtime.inventory import to_planar
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    try:
+        # The module entry point, as a user starts it.
+        gold = CLI_DIR / "golden.bin"
+        for argv in (["golden", gold], ["decode", gold]):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "gen2_rfid_tpu_torch.apps.reader",
+                                  *map(str, argv)], cwd=str(REPO), capture_output=True,
+                                 text=True, timeout=600)
+            log(f"[cli python -m {argv[0]}] exit {out.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            for line in (out.stdout + out.stderr).strip("\n").splitlines():
+                log(f"[cli python -m {argv[0]}] {line}")
+            check(out.returncode == 0, f"python -m ... {argv[0]}: exit {out.returncode}")
+        lines = out.stdout.splitlines()
+        for want in ("| Number of queries/queryreps sent : 71", "| Current Inventory round : 72",
+                     "| Correctly decoded EPC : 70", "| Number of unique tags : 1",
+                     "| Tag ID : 1b  Num of reads : 70"):
+            check(want in lines, f"python -m ... decode golden: no line {want!r}")
+
+        # The bench-size capture: the file read and the copy apart from the decode.
+        bench = CLI_DIR / "bench.bin"
+        write_trace(str(bench), iq_b)
+        log(f"[cli bench] {bench.stat().st_size} bytes, N={iq_b.size}")
+        read_ms, copy_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            iq = read_trace(str(bench))
+            t1 = time.perf_counter()
+            x2 = to_planar(iq).to(dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            read_ms.append((t1 - t0) * 1e3)
+            copy_ms.append((t2 - t1) * 1e3)
+        del x2
+        read_med, copy_med = sorted(read_ms)[1], sorted(copy_ms)[1]
+        argv_b = ["decode", bench, "--max-events", "1536"]
+        main_launches, text = cli_launches(argv_b, {"gate_front": 1, "gate_stack": 1}, "bench")
+        report = report_lines(text)
+        for want in ("| Correctly decoded EPC : 640", "| Tag ID : 1b  Num of reads : 640"):
+            check(want in report, f"cli bench decode: no line {want!r}")
+        _, _, cmd_ms, dec_ms = cli(argv_b, reps=5, timed_decode=True)
+        log(f"[cli time] decode bench.bin: command {cmd_ms:.3f} ms (host wall, median of 5), "
+            f"decode_capture inside it {dec_ms:.3f} ms; alone: read_trace {read_med:.3f} ms, "
+            f"planar + host-to-device copy {copy_med:.3f} ms (median of 3)")
+        times = {"decode": (cmd_ms, dec_ms)}
+
+        # The stream decoder's chunks: the full ones, the padded rest and
+        # the closing zero chunk, one launch of each front kernel a chunk.
+        n_chunks = iq_b.size // 2_000_000 + 2
+        _, text = cli_launches(argv_b + ["--chunked"],
+                               {"gate_front": n_chunks, "gate_stack": n_chunks}, "bench --chunked")
+        check(report_lines(text) == report,
+              "cli --chunked: the report differs from the batch decode's")
+        _, _, ms, _ = cli(argv_b + ["--chunked"], reps=3)
+        times["decode --chunked"] = (ms, None)
+
+        rep_path = CLI_DIR / "bench.jsonl"
+        rc, text, ms, dec_ms = cli(argv_b + ["--report", rep_path], reps=3, timed_decode=True)
+        recs = [json.loads(ln) for ln in rep_path.read_text().splitlines()]
+        check(rc == 0 and f"| Wrote 640 tag-report records to {rep_path}" in text.splitlines()
+              and len(recs) == 640 and all(r["tag_id"] == 27 for r in recs),
+              f"cli --report: {len(recs)} records, expected 640 of tag 27")
+        times["decode --report"] = (ms, dec_ms)
+
+        exact_launches, text = cli_launches(argv_b + ["--exact-gate"],
+                                            {"gate_front": 1, "gate_scan": 1}, "bench --exact-gate")
+        check("| Correctly decoded EPC : 640" in text.splitlines(), "cli --exact-gate: not 640")
+        _, _, ms, dec_ms = cli(argv_b + ["--exact-gate"], reps=3, timed_decode=True)
+        times["decode --exact-gate"] = (ms, dec_ms)
+        bench.unlink()
+
+        # mrc4 under --mrc: 640 / 640 and the bearing.
+        cfg = ReaderConfig(max_events=1536)
+        pos, chans = mrc_array(cfg, 80)
+        ants = []
+        for k, c in enumerate(chans):
+            ants.append(CLI_DIR / f"ant{k}.bin")
+            write_trace(str(ants[k]), np.concatenate([c] * 8))
+        del chans
+        argv = ["decode", *ants, "--mrc", "--max-events", "1536",
+                "--antenna-pos", *[f"{p!r}" for p in pos]]
+        _, text = cli_launches(argv, {"gate_front": 4}, "mrc4")
+        lines = text.splitlines()
+        bearing = [ln for ln in lines if ln.startswith("| Tag 0x1b: bearing ")]
+        check("| Correctly decoded EPC : 640" in lines and len(bearing) == 1
+              and abs(float(bearing[0].split()[4]) - MRC_BEARING_DEG) < 1.0,
+              f"cli mrc4: {bearing}, expected 640 EPCs and a bearing within 1 degree of 25")
+        _, _, ms, _ = cli(argv, reps=3)
+        times["decode --mrc (mrc4)"] = (ms, None)
+        for a in ants:
+            a.unlink()
+
+        # sic2 under --epc-sic: 640 read, then 632 of tag 0x77 recovered.
+        sic = CLI_DIR / "sic2.bin"
+        write_trace(str(sic), np.concatenate([sic_scene(80).iq] * 8))
+        argv = ["decode", sic, "--epc-sic", "--max-events", "1536"]
+        _, text = cli_launches(argv, {"gate_front": 3, "gate_stack": 2}, "sic2")
+        lines = text.splitlines()
+        for want in ("| Correctly decoded EPC : 640", "| Tag ID : 41  Num of reads : 640",
+                     "| EPC-window SIC: 632 extra EPCs recovered",
+                     "| Tag 0x77 (SIC residual): 632 reads"):
+            check(want in lines, f"cli sic2: no line {want!r}")
+        _, _, ms, dec_ms = cli(argv, reps=3, timed_decode=True)
+        times["decode --epc-sic (sic2)"] = (ms, dec_ms)
+        sic.unlink()
+
+        # wideband8 under --wideband 8: phase 11's per-channel counts.
+        wide, occupied = wideband_capture()
+        wb = CLI_DIR / "wideband8.bin"
+        write_trace(str(wb), wide)
+        argv = ["decode", wb, "--wideband", "8"]
+        _, text = cli_launches(argv, {"gate_front": 8, "gate_stack": 8}, "wideband8")
+        blocks = text.split("=== channel ")[1:]
+        shown = {int(b.split()[0]): b for b in blocks}
+        check(set(occupied) <= set(shown), f"cli wideband8: channels {sorted(shown)} printed")
+        for k, block in shown.items():
+            tag, want = occupied.get(k, (0, 0))
+            check(f"| Correctly decoded EPC : {want}" in block.splitlines()
+                  and (not want or f"| Tag ID : {tag:x}  Num of reads : {want}" in block),
+                  f"cli wideband8 channel {k}: not {want} EPCs of tag {tag}")
+        _, _, ms, _ = cli(argv, reps=3)
+        times["decode --wideband 8 (wideband8)"] = (ms, None)
+
+        # range over three hop captures, on the card and with --device cpu.
+        hops = []
+        for k, f in enumerate(HOPS_MHZ):
+            hops.append(CLI_DIR / f"hop{k}.bin")
+            rc, _, _, _ = cli(["simulate", hops[k], "--rounds", "20", "--tags", "27",
+                               "--distance", "2.4", "--freq-mhz", f"{f}"])
+            check(rc == 0, "cli simulate: non-zero exit")
+        argv = ["range", *hops, "--freqs-mhz", *[f"{f}" for f in HOPS_MHZ]]
+        _, text = cli_launches(argv, {"gate_front": 3, "gate_stack": 3}, "range")
+        rc, text_cpu, _, _ = cli(["--device", "cpu", *argv])
+        ranges = [float(t.splitlines()[0].split()[4]) for t in (text, text_cpu)]
+        check(rc == 0 and abs(ranges[0] - ranges[1]) <= 0.001 and abs(ranges[0] - 2.4) < 0.05,
+              f"cli range: {ranges[0]} m on the card, {ranges[1]} m on the CPU")
+
+        rc, text, _, _ = cli(["txspec", "--tx-shape", "2.5"])
+        check(rc == 0 and "| dense-interrogator mask: PASS" in text.splitlines(),
+              "cli txspec --tx-shape 2.5: not a mask PASS")
+
+        # The native (host C++) engine on the golden trace.
+        t0 = time.perf_counter()
+        eng = NativeEngine(ReaderConfig())
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.feed(tr_g.iq)
+        st = eng.stats()
+        feed_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[native] golden tuple {golden_tuple(st)}, {int(st.n_events)} events; build + load "
+            f"{build_s:.1f} s, feed + stats {feed_ms:.1f} ms on the host CPU")
+        check(golden_tuple(st) == GOLDEN and int(st.n_events) == 142,
+              "native engine: golden tuple not reproduced")
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    for form, (ms, dec_ms) in times.items():
+        inner = f", decode_capture inside {dec_ms:.3f} ms" if dec_ms is not None else ""
+        log(f"[cli time] {form}: command {ms:.3f} ms{inner}")
+    return main_launches, exact_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -978,8 +1250,11 @@ def main() -> int:
     log(f"[time] gate_stack stream kernel {fmt(stack_t)}, {stack_warm_ms:.4f} ms with its "
         f"data in L2 (no flush), plain {fmt(stack_plain_t)}, bound {stack_b:.4f} ms "
         f"({stack_by}); achieved {stack_bytes / stack_t['read'] / 1e6:.0f} GB/s (read flush)")
+    # The blf640 widths' own bound: the same bytes, its own window's levels.
+    stack_blf_b, stack_blf_by = stack_bound(ny, BLF640[0])
     log(f"[time] gate_stack general kernel at the blf640 widths, Ny={ny}: {fmt(stack_blf_t)}, "
-        f"bound {stack_b:.4f} ms (the same bytes)")
+        f"bound {stack_blf_b:.6f} ms ({stack_blf_by}), "
+        f"{100 * stack_blf_b / stack_blf_t['read']:.1f}% of the read time")
     log(f"[time] gate_stack at golden Ny={y2_gold.shape[1]}: stream {fmt(stack_gold_t)}")
 
     # ---- phase 5: where the bench decode's time goes ----
@@ -1190,6 +1465,9 @@ def main() -> int:
     mrc_launches, _ = phase_mrc(dev)
     sic_launches, _ = phase_sic(dev, x2_b, cfg_b)
 
+    # ---- phase 15: the CLI on the card ----
+    cli_launches_b, cli_launches_exact = phase_cli(dev, iq_b, tr_g)
+
     # ms, plain_ms and library_ms are written-flush times (the earlier
     # yardstick); the *_read keys the read-flush ones (L2 clean before each
     # run).  gate_scan's plain version is a host loop timed once, unflushed.
@@ -1202,7 +1480,8 @@ def main() -> int:
          "bound_by": front_by, "library_ms": None, "ms_read": front_t["read"],
          "plain_ms_read": front_plain_t["read"], "library_ms_read": None,
          "miller": miller_shapes["gate_front"], "launches_mrc4": mrc_launches["gate_front"],
-         "launches_sic2_recovery": sic_launches["gate_front"]},
+         "launches_sic2_recovery": sic_launches["gate_front"],
+         "launches_cli": cli_launches_b["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
@@ -1210,14 +1489,15 @@ def main() -> int:
          "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_b,
          "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
          "plain_ms_read": stack_plain_t["read"], "library_ms_read": None,
-         "miller": miller_shapes["gate_stack"]},
+         "miller": miller_shapes["gate_stack"], "launches_cli": cli_launches_b["gate_stack"]},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",
          "launches": exact_launches["gate_scan"], "max_abs_err": err_scan,
          "ms": scan_t["write"], "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
          "bound_by": scan_by, "library_ms": None, "ms_read": scan_t["read"],
-         "plain_ms_read": None, "library_ms_read": None},
+         "plain_ms_read": None, "library_ms_read": None,
+         "launches_cli": cli_launches_exact["gate_scan"]},
         {"name": "probe", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_gate_sums_experiment.py:116",

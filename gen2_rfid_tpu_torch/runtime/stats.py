@@ -74,3 +74,80 @@ def format_results(stats: InventoryStats) -> str:
 
 def print_results(stats: InventoryStats) -> None:
     print(format_results(stats))
+
+
+def tag_signal_report(dec) -> dict:
+    """Per-tag RSSI / phase from the per-read channel estimates
+    (stats.py:91-124).
+
+    For each tag id with CRC-passing EPC reads: ``rssi_dbfs``, 10*log10(mean
+    |h|^2) of the post-matched-filter channel estimate; ``phase_rad``, the
+    circular mean of angle(h); ``phase_spread_rad``, the circular std;
+    ``n_reads``.  ``dec`` is the port's DecodedEvents (moved to the host
+    once, as numpy arrays); the arithmetic is the JAX package's, in numpy."""
+    from ..carry import decoded_to_numpy
+
+    d = decoded_to_numpy(dec)
+    valid = d["valid"] & d["epc_pass"]
+    h = d["h_est"][valid]
+    tid = d["tag_id"][valid]
+    out = {}
+    for t in np.unique(tid):
+        hs = h[tid == t]
+        z = hs[:, 0] + 1j * hs[:, 1]
+        power = float(np.mean(np.abs(z) ** 2))
+        unit = z / np.maximum(np.abs(z), 1e-20)
+        r = np.abs(unit.mean())
+        out[int(t)] = {
+            "rssi_dbfs": 10.0 * float(np.log10(max(power, 1e-30))),
+            "phase_rad": float(np.angle(unit.mean())),
+            "phase_spread_rad": float(np.sqrt(max(-2.0 * np.log(max(r, 1e-12)), 0.0))),
+            "n_reads": int(hs.shape[0]),
+        }
+    return out
+
+
+def tag_report_records(dec, cfg, freq_hz: float = None) -> list:
+    """Per-read tag report records, the LLRP RO_ACCESS_REPORT analogue
+    (stats.py:126-176): one dict per CRC-passed EPC read with its time (s,
+    capture clock), EPC hex (PC-length-aware), ``epc_uri`` where the EPC
+    carries a known TDS header, tag id, RSSI (dBfs), phase (rad), the XPC
+    word's ``u_flag`` where there is one and the carrier (MHz) when given.
+    ``dec`` as for ``tag_signal_report``."""
+    from ..carry import decoded_to_numpy
+    from ..protocol import tds
+    from ..protocol.gen2 import parse_epc_frame_full
+
+    d = decoded_to_numpy(dec)
+    valid = d["valid"] & d["epc_pass"]
+    idx = d["index"][valid]
+    bits = d["epc_bits"][valid]
+    tid = d["tag_id"][valid]
+    h = d["h_est"][valid]
+    hc = h[:, 0] + 1j * h[:, 1]
+    out = []
+    for k in range(idx.size):
+        fr = parse_epc_frame_full(bits[k])
+        epc = fr["epc"]                   # XPC word (if any) excluded
+        epc_hex = "".join(
+            f"{int(''.join(map(str, epc[j: j + 4])), 2):x}"
+            for j in range(0, epc.size, 4)) if fr["ok"] else ""
+        rec = {
+            "time_s": round(float(idx[k] / cfg.sample_rate), 6),
+            "epc": epc_hex,
+            "epc_words": epc.size // 16,
+            "tag_id": int(tid[k]),
+            "rssi_dbfs": round(float(
+                10 * np.log10(max(abs(hc[k]) ** 2, 1e-30))), 2),
+            "phase_rad": round(float(np.angle(hc[k])), 4),
+        }
+        if fr["ok"] and epc.size:
+            ident = tds.decode_epc(epc)
+            if "uri" in ident:
+                rec["epc_uri"] = ident["uri"]
+        if fr["xi"]:
+            rec["u_flag"] = fr["u"]
+        if freq_hz:
+            rec["channel_mhz"] = round(freq_hz / 1e6, 3)
+        out.append(rec)
+    return out

@@ -1,9 +1,11 @@
 """The port's copies of the JAX package's pure-numpy modules match their originals.
 
 The port imports nothing of ``gen2_rfid_tpu``, so it keeps its own copies of
-the configuration, the CRC, the tag crypto suites, the simulator chain, the
-SigMF reader and writer (with the EPC tag-data standards its annotations
-name), the ranging estimators and the fixtures' recipes.  These tests hold
+the configuration, the CRC, the tag crypto suites, the simulator chain and
+its RX impairments, the SigMF and raw trace readers and writers (with the
+EPC tag-data standards its annotations name), the ranging estimators, the
+command sniffer, the TX spectrum, the native engine's C++ source and the
+fixtures' recipes.  These tests hold
 each copy to its original: the source text, every relative import (which
 must resolve inside the port), every config field and derived property, the
 simulator's captures and crypto answers, and the fixtures' bytes.
@@ -34,7 +36,10 @@ from gen2_rfid_tpu_torch.tools import fixtures as port_fixtures
 REPO = Path(__file__).resolve().parents[1]
 COPIES = ["config.py", "protocol/crc.py", "protocol/crypto.py", "protocol/gen2.py",
           "protocol/tds.py", "tx/pie.py", "sim/tag.py", "sim/trace.py", "io/sigmf.py",
-          "runtime/ranging.py"]
+          "runtime/ranging.py", "io/tracefile.py", "runtime/sniffer.py", "tx/spectrum.py",
+          "sim/impairments.py", "native/gen2_stream.cc"]
+# The copies whose relative imports resolve: the C++ engine source has none.
+PY_COPIES = [rel for rel in COPIES if rel.endswith(".py")]
 
 CONFIGS = [
     dict(),
@@ -72,7 +77,7 @@ def _relative_imports(rel):
             yield node.lineno, name, [a.name for a in node.names]
 
 
-@pytest.mark.parametrize("rel", COPIES)
+@pytest.mark.parametrize("rel", PY_COPIES)
 def test_copy_relative_imports_resolve_in_port(rel):
     """A verbatim copy can name a module the port lacks (the byte check
     above cannot see it): every relative import, lazy ones included, must
@@ -87,10 +92,13 @@ def test_copy_relative_imports_resolve_in_port(rel):
 
 
 def test_copies_have_lazy_imports_to_check():
-    """The scan sees the lazy crypto imports inside Tag's methods."""
+    """The scan sees the lazy crypto imports inside Tag's methods and the
+    spectrum's lazy import of the sniffer."""
     found = {(name, tuple(names)) for _, name, names in _relative_imports("sim/tag.py")}
     assert ("gen2_rfid_tpu_torch.protocol", ("crypto",)) in found
     assert any(n == "gen2_rfid_tpu_torch.protocol.crypto" for n, _ in found)
+    found = {(name, tuple(names)) for _, name, names in _relative_imports("tx/spectrum.py")}
+    assert ("gen2_rfid_tpu_torch.runtime.sniffer", ("sniff_commands",)) in found
 
 
 def test_tag_crypto_answers_match():

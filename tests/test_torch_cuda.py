@@ -437,3 +437,47 @@ def test_sic_refuses_tf32_and_recovery_turns_it_off(cuda):
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---- the CLI -------------------------------------------------------------------
+
+def test_cli_decode_on_card(cuda, tmp_path, capsys):
+    """``decode`` without --device decodes on the card: the golden tuple
+    through one launch each of gate_front and gate_stack."""
+    from gen2_rfid_tpu_torch.apps.reader import main
+
+    path = str(tmp_path / "golden.bin")
+    assert main(["golden", path]) == 0
+    before = dict(kernels.launches)
+    assert main(["decode", path]) == 0
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "gate_front": 1, "gate_stack": 1, "gate_scan": 0, "probe": 0}
+    lines = capsys.readouterr().out.splitlines()
+    for want in ("| Number of queries/queryreps sent : 71", "| Current Inventory round : 72",
+                 "| Correctly decoded EPC : 70", "| Tag ID : 1b  Num of reads : 70"):
+        assert want in lines
+
+
+def test_cli_wideband_turns_tf32_off(cuda, tmp_path, capsys):
+    """``main`` is an entry point: with both TF32 flags set before it, it
+    clears them, and the channelizer (which refuses TF32) then runs."""
+    from gen2_rfid_tpu_torch.apps.reader import main
+    from gen2_rfid_tpu_torch.io.tracefile import write_trace
+    from torch_compare import two_reader_wideband
+
+    wide, occupied = two_reader_wideband()
+    path = str(tmp_path / "wide.bin")
+    write_trace(path, wide)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert main(["decode", path, "--wideband", "2", "--max-events", "64"]) == 0
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = capsys.readouterr().out
+    for k, tag in occupied.items():
+        assert f"=== channel {k} " in out and f"| Tag ID : {tag:x}  Num of reads : 2" in out

@@ -88,3 +88,29 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def two_reader_wideband(n_rounds=2):
+    """A 4 Msps capture of two readers for ``decode --wideband 2``: tag 99
+    on channel 0 (DC) and tag 27 on channel 1 (-2 MHz), each an inventory
+    of ``n_rounds`` rounds synthesized at 4 Msps, as tests/test_channelizer.py
+    builds its 16 Msps scene.  Returns (complex64 capture, {channel: tag})."""
+    import numpy as np
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    synth = ReaderConfig(adc_rate=4e6)
+    tr_a = synthesize_inventory(synth, [Tag.with_id(99, seed=9)], n_rounds=n_rounds, seed=4,
+                                noise=0.0)
+    tr_b = synthesize_inventory(synth, [Tag.with_id(27, seed=7)], n_rounds=n_rounds, seed=3,
+                                noise=0.0)
+    n = max(tr_a.iq.size, tr_b.iq.size)
+    wide = np.zeros(n, np.complex64)
+    wide[: tr_a.iq.size] += tr_a.iq
+    sign = np.where(np.arange(tr_b.iq.size) % 2 == 0, 1, -1).astype(np.complex64)
+    wide[: tr_b.iq.size] += tr_b.iq * sign          # shifted by half the rate
+    rng = np.random.default_rng(5)
+    wide += (rng.normal(0, 0.002, n) + 1j * rng.normal(0, 0.002, n)).astype(np.complex64)
+    return wide, {0: 99, 1: 27}
