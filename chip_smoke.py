@@ -13,12 +13,13 @@ then:
    end of its register blocking (ny % R = 1..R-1, ny < R, ny below the
    halo) for three blockings, and on an input 4 bytes past a 16-byte
    boundary; gate_stack's flags exactly equal on the bench y, noise, every
-   input its CPU model is held to (``kernels/gate_stack.py::stream_cases``:
-   edge lengths, run boundaries, ties, tiny and infinite samples, and the
-   blf640 and 160 kHz widths, which run its shared-memory general kernel)
-   and bench-size lengths on a run boundary and one past it, after the
-   stream's fast root and division are held to the IEEE ones on every float
-   of their range;
+   input its CPU models are held to (``kernels/gate_stack.py::stream_cases``
+   and ``segment_cases``: edge lengths, run and segment boundaries, ties,
+   tiny and infinite samples; the Miller, blf640, 160 kHz, Tari 6.25 us,
+   Miller-8 320 kHz and 8 and 16 Msps FM0 widths, which run its segment
+   kernel) and bench-size lengths on a run boundary and one past it, after
+   the stream's fast root and division are held to the IEEE ones on every
+   float of their range;
 2. decodes the golden trace on CUDA: 71 queries / round 72 / 70 EPCs /
    1 unique tag / tag 0x1b read 70 times, and the card's decoded events
    equal a CPU run of the port on the same capture;
@@ -31,8 +32,9 @@ then:
    the card's memory-bound time for the same bytes, and gate_front once
    more with a dc window of 47, which runs the kernel built with runtime
    loop bounds (ReaderConfig's widths compile as constants); gate_stack
-   also with its data left in L2 (no flush), and at the blf640 widths on
-   a bench-size capture (its general kernel, checked there too).  Every
+   also with its data left in L2 (no flush); its segment kernel at the
+   blf640 widths on a bench-size capture, checked there at every swept
+   segment, with its launch shape and a segment sweep.  Every
    kernel is timed under both flushes of ``utils/timing.py::cuda_ms``:
    written (L2 left full of dirty lines, the earlier yardstick) and read (L2
    left clean); the kernels line gives the written times in ``ms``,
@@ -61,11 +63,12 @@ then:
    and the probe; then the probe's, an empty launch's and the library
    call's times;
 10. Miller-M: at each of bench_configs.py's Miller geometries (miller4,
-    miller2, miller8_trext, 6.5-8.4 M samples) gate_front bit for bit and
-    gate_stack's flags (its shared-memory kernel at these widths) against
-    their plain versions; the full-size decode, 480 / 400 / 120 EPCs,
+    miller2, miller8_trext, 6.5-8.4 M samples) gate_front bit for bit
+    against its plain version; the full-size decode, 480 / 400 / 120 EPCs,
     through one launch of each (gate_scan none), timed and profiled; both
-    kernels timed at each shape beside their bounds; five small Miller
+    kernels timed at each shape beside their bounds, gate_stack's segment
+    kernel checked at each swept segment, with its shape and the sweep
+    (miller4 also its plain version); five small Miller
     captures and the pinned ``miller4_impaired`` SigMF fixture (5 queries,
     round 6, 5 EPCs of tag 77), CUDA == CPU on every int/bool field;
 11. wideband: bench_configs.py's 16 Msps, 8-channel capture channelized on
@@ -103,12 +106,20 @@ then:
     under ``--epc-sic`` (640 read, 632 of tag 0x77 recovered), wideband8
     under ``--wideband 8`` (phase 11's counts), ``range`` over three hop
     captures equal to ``--device cpu`` to 1 mm, ``txspec``, and the native
-    C++ engine (host) on the golden trace.
+    C++ engine (host) on the golden trace;
+16. FM0 at 8 and 16 Msps, decim 1 (W 2000 and 4000, 20 and 10 rounds
+    tiled twice): gate_front at its fitted tile bit for bit, the decode
+    through exactly one launch of each front kernel, every EPC of tag 27,
+    equal to the CPU decode on every int/bool field, timed and profiled;
+    both kernels timed beside their bounds, the segment kernel with its
+    shape and sweep.
 
-Prints a ``{"kernels": [...]}`` line (gate_front's and gate_stack's entries
-carry their Miller launch shapes under ``miller``; gate_front's its mrc4 and
-sic2 recovery launches; each its launches in the CLI's decode under
-``launches_cli``), the card's name and power limit, and last
+Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
+shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
+and gate_stack's their launches in the CLI's decode under ``launches_cli``;
+``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
+Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
+limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package ``gen2_rfid_tpu``.
@@ -272,6 +283,121 @@ def stack_bound(ny, win):
                  ny * (3 + 1 + (win.bit_length() - 1) + (bin(win).count("1") - 1) + 2))
 
 
+def segment_report(label, y2, geo, both, fmt, flush, plain=False):
+    """gate_stack's segment kernel at one shape: its flags against the plain
+    version's at the automatic segment and at each swept one, its launch
+    shape (the shared memory against the Python mirror's), its time under
+    both flushes beside the bound, and the segment sweep under the read
+    flush.  Returns the row for the kernels line."""
+    from gen2_rfid_tpu_torch.kernels.gate_stack import (
+        gate_stack_flags, gate_stack_plain, gate_stack_shape, segment_smem_bytes)
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    ny = y2.shape[1]
+    shp = gate_stack_shape(ny, *geo[:3])
+    check(shp["smem_bytes"] == segment_smem_bytes(*geo[:3]),
+          f"{label}: the segment kernel's shared memory is not the Python mirror's")
+    auto = shp["run"]
+    runs = sorted({max(auto // 4, 1), max(auto // 2, 1), auto, 2 * auto, 4 * auto, 64, 256})
+    want = gate_stack_plain(y2, *geo)
+    err = 0
+    for run in [0] + runs:
+        got = gate_stack_flags(y2, *geo, run=run)
+        check(int((got != want).sum()) == 0,
+              f"{label}: segment kernel flags differ from plain at run={run}")
+        err = max(err, int((got - want).abs().max()))
+    waves = shp["grid"] / (shp["blocks_per_sm"] * shp["sms"])
+    log(f"[gate_stack segment] {label} Ny={ny} widths {geo[:3]}: flags == plain at run 0 and "
+        f"{runs}; shape {shp}, {waves:.2f} waves")
+    t = both(lambda: gate_stack_flags(y2, *geo), 20)
+    sweep = {r: cuda_ms(lambda r=r: gate_stack_flags(y2, *geo, run=r), 20, flush, flush_by="read")
+             for r in runs}
+    b, by = stack_bound(ny, geo[0])
+    log(f"[gate_stack segment sweep] {label}: " + ", ".join(
+        f"run={r}: {v:.4f}" for r, v in sweep.items()) + f" ms (read flush); automatic run={auto}, "
+        f"fastest run={min(sweep, key=sweep.get)}")
+    row = {"ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
+           "share_read": b / t["read"], "run": auto, "max_abs_err": err,
+           "smem_bytes": shp["smem_bytes"], "blocks_per_sm": shp["blocks_per_sm"],
+           "grid": shp["grid"],
+           "sweep_read": {str(r): v for r, v in sweep.items()}}
+    if plain:
+        pt = both(lambda: gate_stack_plain(y2, *geo), 5)
+        row.update(plain_ms=pt["write"], plain_ms_read=pt["read"])
+    log(f"[time] gate_stack segment kernel {label} Ny={ny}: {fmt(t)}, bound {b:.6f} ms ({by}), "
+        f"{100 * b / t['read']:.1f}% of the read time" +
+        (f"; plain {fmt(pt)}" if plain else ""))
+    return row
+
+
+# FM0 at sample rates where W >= 2000 (8 and 16 Msps at decim 1; tag 27
+# seed 7, seed 2, tiled twice): name, config, rounds.  Their Ny is 2.5 M and
+# 2.6 M, beside the bench's 1.9 M.
+HIGH_RATES = (
+    ("fm0_8msps", dict(adc_rate=8e6, decim=1, max_events=256), 20),
+    ("fm0_16msps", dict(adc_rate=16e6, decim=1, max_events=256), 10),
+)
+
+
+def phase_high_rates(dev, both, fmt, flush, path_run, tiles=2):
+    """Phase 16: FM0 captures at 8 and 16 Msps, decim 1 (W 2000 and 4000),
+    decoded on the card through exactly one launch of each front kernel,
+    every EPC read and equal to the CPU decode, timed and profiled;
+    gate_front at its fitted tile bit-equal to its plain version; both
+    kernels timed beside their bounds, gate_stack's segment kernel with its
+    shape and sweep.  Returns {name: segment kernel row} and the gate_stack
+    launches of the decodes."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.kernels.gate_front import (
+        fitting_block_y, front_taps, gate_front, gate_front_plain)
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    rows, launches = {}, 0
+    for name, kw, rounds in HIGH_RATES:
+        c = ReaderConfig(**kw)
+        tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=rounds, seed=2)
+        x2c = to_planar(np.concatenate([tr.iq] * tiles))
+        want_epc = tr.expected_epc_pass * tiles
+        x2 = x2c.to(dev)
+        n = x2.shape[1]
+        geo_f = (c.decim, front_taps(c), c.win_length, c.dc_length)
+        geo_s = (c.win_length, c.n_samples_pw // 2, c.n_samples_t1, c.thresh_fraction)
+        got = gate_front(x2, *geo_f)
+        check(all(torch.equal(g, w) for g, w in zip(got, gate_front_plain(x2, *geo_f))),
+              f"{name}: gate_front is not bit-equal to its plain version")
+        y2 = got[0]
+        ny = y2.shape[1]
+        log(f"[{name}] N={n}, Ny={ny}; gate_front (decim, taps, win, dc) {geo_f} at block_y="
+            f"{fitting_block_y(*geo_f)} bit-equal to plain")
+        run, counts = path_run(f"{name} decode", x2, c, once=True)
+        st = run[0]
+        check(int(st.n_epc_correct) == want_epc and int(st.tag_reads[27]) == want_epc
+              and unique_tags(st) == 1,
+              f"{name}: {int(st.n_epc_correct)} EPCs, expected {want_epc} of tag 27")
+        launches += counts["gate_stack"]
+        same_as_cpu(name, run, decode_capture_planar(x2c, c, device="cpu"))
+        ms = cuda_ms(lambda: decode_capture_planar(x2, c), 5)
+        log(f"[{name}] decode {ms:.3f} ms for {n} samples ({n / ms / 1e3:.1f} Msamples/s), "
+            f"{want_epc} / {want_epc} EPCs of tag 27")
+        device_profile(lambda: decode_capture_planar(x2, c), reps=2, top=6,
+                       label=f"profile {name}")
+        front_t = both(lambda: gate_front(x2, *geo_f), 20)
+        fb, fby = front_bound(n, ny, *geo_f[1:])
+        log(f"[time] {name} gate_front {fmt(front_t)}, bound {fb:.4f} ms ({fby}), "
+            f"{100 * fb / front_t['read']:.1f}% of the read time")
+        rows[name] = dict(segment_report(name, y2, geo_s, both, fmt, flush),
+                          launches=counts["gate_stack"])
+        del x2, y2, got
+    return rows, launches
+
+
 # Full-size Miller captures: bench_configs.py's case_miller4, case_miller2 and
 # case_miller8_trext (tag 27 seed 7, 20 rounds, seed 2, tiled): name, config,
 # tiles, ADC samples, EPCs.
@@ -289,19 +415,18 @@ MILLER_SMALL = (
 )
 
 
-def phase_miller(dev, both, fmt, path_run):
+def phase_miller(dev, both, fmt, flush, path_run):
     """Phase 10: the two kernels at each Miller bench geometry against their
     plain versions; the full-size decodes through them, timed and profiled;
     small captures and the pinned SigMF fixture, CUDA against CPU.  Returns
-    {kernel: {capture: time and bound}} for the kernels line."""
+    {kernel: {capture: time and bound}} for the kernels line; gate_stack's
+    rows are the segment kernel's, with its shape and sweep."""
     import numpy as np
     import torch
 
     from gen2_rfid_tpu_torch.config import ReaderConfig
     from gen2_rfid_tpu_torch.io.sigmf import load_sigmf
     from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
-    from gen2_rfid_tpu_torch.kernels.gate_stack import (
-        gate_stack_flags, gate_stack_plain, gate_stack_shape)
     from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
     from gen2_rfid_tpu_torch.runtime.stats import unique_tags
     from gen2_rfid_tpu_torch.sim.tag import Tag
@@ -327,12 +452,8 @@ def phase_miller(dev, both, fmt, path_run):
         y2 = got[0]
         ny = y2.shape[1]
         del got, want
-        n_bad = int((gate_stack_flags(y2, *geo_s) != gate_stack_plain(y2, *geo_s)).sum())
-        shp = gate_stack_shape(ny, *geo_s[:3])
         log(f"[{name}] N={n}, Ny={ny}; gate_front (decim, taps, win, dc) {geo_f} bit-equal to "
-            f"plain; gate_stack widths {geo_s[:3]}: {n_bad} flags differ from plain; "
-            f"launch {shp}")
-        check(n_bad == 0, f"{name}: gate_stack flags differ from the plain version")
+            f"plain")
         (st, _), counts = path_run(f"{name} bench", x2, c, once=True)
         check(int(st.n_epc_correct) == want_epc and int(st.tag_reads[27]) == want_epc
               and unique_tags(st) == 1,
@@ -344,16 +465,15 @@ def phase_miller(dev, both, fmt, path_run):
         device_profile(lambda: decode_capture_planar(x2, c), reps=2, top=8,
                        label=f"profile {name}")
         front_t = both(lambda: gate_front(x2, *geo_f), 20)
-        stack_t = both(lambda: gate_stack_flags(y2, *geo_s), 20)
         fb, fby = front_bound(n, ny, *geo_f[1:])
-        sb, sby = stack_bound(ny, geo_s[0])
         front_bytes = (4 * (2 * n) + 4 * (6 * ny)) / HBM_BYTES_PER_S * 1e3
         log(f"[time] {name} gate_front {fmt(front_t)}, bound {fb:.4f} ms ({fby}; "
-            f"{front_bytes:.4f} ms by its bytes alone); gate_stack {fmt(stack_t)}, "
-            f"bound {sb:.4f} ms ({sby})")
-        for k, t, b, by in (("gate_front", front_t, fb, fby), ("gate_stack", stack_t, sb, sby)):
-            shapes[k][name] = {"launches": counts[k], "ms": t["write"], "ms_read": t["read"],
-                               "bound_ms": b, "bound_by": by}
+            f"{front_bytes:.4f} ms by its bytes alone)")
+        shapes["gate_front"][name] = {"launches": counts["gate_front"], "ms": front_t["write"],
+                                      "ms_read": front_t["read"], "bound_ms": fb, "bound_by": fby}
+        shapes["gate_stack"][name] = dict(
+            segment_report(name, y2, geo_s, both, fmt, flush, plain=name == "miller4"),
+            launches=counts["gate_stack"])
         del x2, y2
         torch.cuda.empty_cache()
 
@@ -1024,7 +1144,7 @@ def main() -> int:
         gate_scan_plain, pulse_train, random_runs)
     from gen2_rfid_tpu_torch.kernels.gate_stack import (
         BLF640, burst_capture, check_arith, gate_stack_flags, gate_stack_plain,
-        gate_stack_shape, stream_cases)
+        gate_stack_shape, segment_cases, stream_cases)
     from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
     from gen2_rfid_tpu_torch.runtime.inventory import (
         decode_capture_planar, to_planar)
@@ -1114,9 +1234,9 @@ def main() -> int:
         if label == "bench":
             y2_bench = got[0]
     # gate_stack: flags exactly equal (run 0: the automatic run) on the bench
-    # y, noise, every input the CPU model is held to, bench-size lengths on a
-    # run boundary and one past it; the blf640 and 160 kHz widths among the
-    # model's inputs run the general kernel.
+    # y, noise, every input the CPU models are held to, bench-size lengths on
+    # a run boundary and one past it; every width but ReaderConfig's among
+    # the models' inputs runs the segment kernel.
     arith = check_arith()
     log(f"[gate_stack arithmetic] the stream's fast sqrt and division by 100 against "
         f"__fsqrt_rn / __fdiv_rn on every float of their range (0, [2^-100, FLT_MAX]): "
@@ -1129,7 +1249,8 @@ def main() -> int:
     for n, run in [(40961, 32), (9999, 8), (10240, 128), (150, 0), (1, 0)]:
         y = rng.normal(size=(2, n)).astype(np.float32)
         stack_cases.append((f"noise n={n}", torch.from_numpy(y).to(dev), stack_geo, run))
-    stack_cases += [(label, y2.to(dev), geo, run) for label, y2, geo, run in stream_cases()]
+    stack_cases += [(label, y2.to(dev), geo, run)
+                    for label, y2, geo, run in stream_cases() + segment_cases()]
     run_b = gate_stack_shape(ny_b, win, pw_half, nt1)["run"]
     for ny_r in (32 * run_b * 2000, 32 * run_b * 2000 + 1):
         stack_cases.append((f"bursts ny={ny_r} (run boundary)", burst_capture(ny_r, 3).to(dev),
@@ -1214,18 +1335,15 @@ def main() -> int:
     front_rt_t = both(lambda: gate_front(x2_b, decim, taps, win, dcw - 1), 20)
     front_plain_t = both(lambda: gate_front_plain(x2_b, decim, taps, win, dcw), 5)
     # gate_stack: the warp stream at its automatic run, its run swept at the
-    # bench and golden shapes, and the general kernel (the shared-memory
-    # kernel that other widths take) at the blf640 widths.
+    # bench and golden shapes, and the segment kernel (every other width) at
+    # the blf640 widths.
     y2_gold = gate_front_for_cfg(x2_g.to(dev), cfg_g)[0]
-    for label, y2s, geo in (("bench", y2_bench, stack_geo), ("golden", y2_gold, stack_geo),
-                            ("blf640 bursts", y2_blf, BLF640)):
+    for label, y2s, geo in (("bench", y2_bench, stack_geo), ("golden", y2_gold, stack_geo)):
         shp = gate_stack_shape(y2s.shape[1], *geo[:3])
         waves = shp["grid"] / (shp["blocks_per_sm"] * shp["sms"])
         log(f"[gate_stack shape] {label} Ny={y2s.shape[1]} widths {geo[:3]}: {shp}; "
             f"{waves:.2f} waves, {shp['blocks_per_sm'] * shp['threads'] // 32} "
             f"resident warps an SM of 64")
-        if geo != stack_geo:
-            continue
         runs = {}
         for run in (5, 13, 21, 29, 37, 53, 61, 125):
             runs[run] = cuda_ms(lambda run=run: gate_stack_flags(y2s, *stack_geo, run=run), 20,
@@ -1238,7 +1356,6 @@ def main() -> int:
     # this saves against the read flush is what DRAM costs it.
     stack_warm_ms = cuda_ms(lambda: gate_stack_flags(y2_bench, *stack_geo), 20)
     stack_gold_t = both(lambda: gate_stack_flags(y2_gold, *stack_geo), 20)
-    stack_blf_t = both(lambda: gate_stack_flags(y2_blf, *BLF640), 20)
     stack_plain_t = both(lambda: gate_stack_plain(y2_bench, *stack_geo), 5)
     # Bytes: each input read once, each output written once.
     front_b, front_by = front_bound(n_b, ny, taps, win, dcw)
@@ -1250,12 +1367,8 @@ def main() -> int:
     log(f"[time] gate_stack stream kernel {fmt(stack_t)}, {stack_warm_ms:.4f} ms with its "
         f"data in L2 (no flush), plain {fmt(stack_plain_t)}, bound {stack_b:.4f} ms "
         f"({stack_by}); achieved {stack_bytes / stack_t['read'] / 1e6:.0f} GB/s (read flush)")
-    # The blf640 widths' own bound: the same bytes, its own window's levels.
-    stack_blf_b, stack_blf_by = stack_bound(ny, BLF640[0])
-    log(f"[time] gate_stack general kernel at the blf640 widths, Ny={ny}: {fmt(stack_blf_t)}, "
-        f"bound {stack_blf_b:.6f} ms ({stack_blf_by}), "
-        f"{100 * stack_blf_b / stack_blf_t['read']:.1f}% of the read time")
     log(f"[time] gate_stack at golden Ny={y2_gold.shape[1]}: stream {fmt(stack_gold_t)}")
+    segment_rows = {"blf640": segment_report("blf640 bursts", y2_blf, BLF640, both, fmt, flush)}
 
     # ---- phase 5: where the bench decode's time goes ----
     stage_breakdown(x2_b, cfg_b)
@@ -1457,7 +1570,7 @@ def main() -> int:
         f"{fmt(empty_t)}, bound {probe_bound:.2e} ms ({probe_by})")
 
     # ---- phases 10-12: Miller, wideband, stream ----
-    miller_shapes = phase_miller(dev, both, fmt, native_path_run)
+    miller_shapes = phase_miller(dev, both, fmt, flush, native_path_run)
     phase_wideband(dev, both, fmt)
     phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b)
 
@@ -1467,6 +1580,12 @@ def main() -> int:
 
     # ---- phase 15: the CLI on the card ----
     cli_launches_b, cli_launches_exact = phase_cli(dev, iq_b, tr_g)
+
+    # ---- phase 16: 8 and 16 Msps captures, the segment kernel's widest ----
+    high_rows, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
+    segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
+    segment_rows.update(high_rows)
+    seg_main = segment_rows["miller4"]
 
     # ms, plain_ms and library_ms are written-flush times (the earlier
     # yardstick); the *_read keys the read-flush ones (L2 clean before each
@@ -1489,7 +1608,20 @@ def main() -> int:
          "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_b,
          "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
          "plain_ms_read": stack_plain_t["read"], "library_ms_read": None,
-         "miller": miller_shapes["gate_stack"], "launches_cli": cli_launches_b["gate_stack"]},
+         "launches_cli": cli_launches_b["gate_stack"]},
+        # The segment kernel: gate_stack at every width but ReaderConfig's.
+        # Its top-level times are miller4's; "shapes" holds each timed
+        # shape; "launches" counts the phase 16 decodes', each shape's row
+        # its own decode's.
+        {"name": "gate_stack_segment", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
+         "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
+         "launches": high_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in segment_rows.values()),
+         "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"], "bound_ms": seg_main["bound_ms"],
+         "bound_by": seg_main["bound_by"], "library_ms": None, "ms_read": seg_main["ms_read"],
+         "plain_ms_read": seg_main["plain_ms_read"], "library_ms_read": None,
+         "shapes": segment_rows},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",

@@ -60,7 +60,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int R = 4;        // consecutive outputs a thread (8 ran slower on the H100)
-constexpr int kPasses = 3;  // passes of the y loop a thread makes at most
+// Passes of the y loop a thread makes at most: 3 for ReaderConfig's defaults
+// and the widths up to 8 Msps; 6 for a halo of up to 3,999 y (W 4000, 16
+// Msps at decim 1) at a tile of 924.
+constexpr int kPassesFew = 3;
+constexpr int kPassesMany = 6;
 
 // Shared-memory layout of one tile's buffer, in floats.
 struct Shape {
@@ -102,8 +106,10 @@ __host__ __device__ inline size_t smem_bytes(const Shape& s) {
   return 2 * static_cast<size_t>(buffer_floats(s)) * sizeof(float);
 }
 
-__host__ __device__ inline bool supported(const Shape& s) {
-  return s.ngr <= kPasses * kThreads;
+// The y passes a tile needs: kPassesFew, kPassesMany, or 0 if it needs more.
+__host__ __device__ inline int passes(const Shape& s) {
+  return s.ngr <= kPassesFew * kThreads ? kPassesFew
+         : s.ngr <= kPassesMany * kThreads ? kPassesMany : 0;
 }
 
 // acc[r] = a[e0+r] + a[e0+r-1] + ... + a[e0+r-W+1], added in that order;
@@ -186,8 +192,8 @@ __device__ __forceinline__ void stage(float* buf, const float* __restrict__ xre,
 }
 
 // kDecim, kTaps, kWin, kDc: compile-time decim, T, W and D, or 0 to read
-// the runtime values.
-template <int kDecim, int kTaps, int kWin, int kDc>
+// the runtime values; kPasses: the y passes a thread makes at most.
+template <int kDecim, int kTaps, int kWin, int kDc, int kPasses>
 __global__ void __launch_bounds__(kThreads)
 gate_front_kernel(const float* __restrict__ x2, long long n, int decim_rt, int taps_rt,
                   int win_rt, int dcw_rt, int block_y, long long ny, long long ntiles,
@@ -291,14 +297,14 @@ gate_front_kernel(const float* __restrict__ x2, long long n, int decim_rt, int t
   }
 }
 
-template <int kDecim, int kTaps, int kWin, int kDc>
+template <int kDecim, int kTaps, int kWin, int kDc, int kPasses>
 int launch(const float* x2, long long n, int decim, int n_taps, int win, int dcw,
            int block_y, long long ny, float* y2, float* amp, float* avgsum,
            float* dcsum2, cudaStream_t stream) {
   const Shape shp = shape(decim, n_taps, win, dcw, block_y);
-  if (!supported(shp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (shp.ngr > kPasses * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(shp);
-  auto* kernel = gate_front_kernel<kDecim, kTaps, kWin, kDc>;
+  auto* kernel = gate_front_kernel<kDecim, kTaps, kWin, kDc, kPasses>;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -328,12 +334,12 @@ int launch(const float* x2, long long n, int decim, int n_taps, int win, int dcw
 }  // namespace
 
 // Bytes of shared memory one block takes (two buffers), or -1 when block_y
-// is too large (the y of a slab and its halo must fit kPasses passes of the
-// block's threads); the wrapper checks it against the card's limit.
+// is too large (the y of a slab and its halo must fit kPassesMany passes of
+// the block's threads); the wrapper checks it against the card's limit.
 extern "C" long long gate_front_smem_bytes(int decim, int n_taps, int win, int dcw,
                                            int block_y) {
   const Shape s = shape(decim, n_taps, win, dcw, block_y);
-  return supported(s) ? static_cast<long long>(smem_bytes(s)) : -1;
+  return passes(s) ? static_cast<long long>(smem_bytes(s)) : -1;
 }
 
 // x2: (2, n) float32 planar, contiguous.  Outputs: y2 (2, ny), amp (ny),
@@ -349,10 +355,16 @@ extern "C" int gate_front_launch(const float* x2, long long n, int decim,
   if (decim < 1 || n_taps < 1 || win < 1 || dcw < 1 || block_y < 1 || block_y % R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // ReaderConfig's defaults compile with every loop bound a constant.
-  const bool dflt = decim == 5 && n_taps == 25 && win == 100 && dcw == 48;
-  return dflt ? launch<5, 25, 100, 48>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
-                                       avgsum, dcsum2, s)
-              : launch<0, 0, 0, 0>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
-                                   avgsum, dcsum2, s);
+  // ReaderConfig's defaults compile with every loop bound a constant; other
+  // widths take the runtime-bound build with as many y passes as the tile
+  // and its halo need.
+  const bool few = passes(shape(decim, n_taps, win, dcw, block_y)) == kPassesFew;
+  if (few && decim == 5 && n_taps == 25 && win == 100 && dcw == 48)
+    return launch<5, 25, 100, 48, kPassesFew>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2,
+                                              amp, avgsum, dcsum2, s);
+  if (few)
+    return launch<0, 0, 0, 0, kPassesFew>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
+                                          avgsum, dcsum2, s);
+  return launch<0, 0, 0, 0, kPassesMany>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
+                                         avgsum, dcsum2, s);
 }

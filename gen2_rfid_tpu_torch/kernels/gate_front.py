@@ -22,7 +22,8 @@ Pallas kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,11 +77,25 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def fitting_block_y(decim: int, n_taps: int, win: int, dcw: int) -> int:
+    """The largest tile up to ``BLOCK_Y`` (a multiple of 4) whose slab and
+    halo the kernel takes: a halo of max(W, D)-1 y needs more passes of a
+    block's threads and more shared memory as the sample rate grows."""
+    lib = _lib()
+    for block_y in range(BLOCK_Y, 0, -4):
+        if 0 <= lib.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y) <= SMEM_LIMIT:
+            return block_y
+    raise ValueError(f"gate_front: no tile fits widths decim={decim}, taps={n_taps}, "
+                     f"W={win}, D={dcw}")
+
+
 def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
-               block_y: int = BLOCK_Y) -> Tuple[torch.Tensor, ...]:
+               block_y: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """(2, N) float32 planar I/Q -> (y2 (2, Ny), amp (Ny), avgsum (Ny),
     dcsum2 (2, Ny)), all float32.  ``block_y``: outputs per tile (what a
-    CUDA block sums at a time), a multiple of 4."""
+    CUDA block sums at a time), a multiple of 4; None takes
+    ``fitting_block_y`` (``BLOCK_Y`` wherever it fits)."""
     if x2.dim() != 2 or x2.shape[0] != 2:
         raise ValueError(f"gate_front takes (2, N) planar I/Q, got {tuple(x2.shape)}")
     if x2.device.type == "cpu":
@@ -89,6 +104,8 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
         raise ValueError(f"gate_front runs on cuda or cpu, not {x2.device}")
     if x2.dtype != torch.float32 or not x2.is_contiguous():
         raise ValueError("gate_front takes a contiguous float32 tensor")
+    if block_y is None:
+        block_y = fitting_block_y(decim, n_taps, win, dcw)
     if block_y < 1 or block_y % 4:
         raise ValueError(f"gate_front: block_y={block_y} must be a positive multiple of 4")
     n = x2.shape[1]
@@ -103,10 +120,10 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
     smem = lib.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y)
     if smem < 0:
         raise ValueError(f"gate_front: block_y={block_y} is too large: a thread keeps "
-                         f"at most 3 groups of 4 y")
+                         f"at most 6 groups of 4 y")
     if smem > SMEM_LIMIT:
-        raise ValueError(f"gate_front: block_y={block_y} needs {smem} bytes of shared "
-                         f"memory a block, over the card's {SMEM_LIMIT}")
+        raise ValueError(f"gate_front: block_y={block_y} is too large: it needs {smem} "
+                         f"bytes of shared memory a block, over the card's {SMEM_LIMIT}")
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.gate_front_launch(x2.data_ptr(), n, decim, n_taps, win, dcw, block_y,

@@ -19,8 +19,8 @@ from gen2_rfid_tpu_torch.kernels.gate_front import BLOCK_Y, gate_front, gate_fro
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
     dense_edges, gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train, random_runs)
 from gen2_rfid_tpu_torch.kernels.gate_stack import (
-    burst_capture, check_arith, gate_stack_flags, gate_stack_plain, gate_stack_shape,
-    stream_geometry)
+    SEGMENT_GEOS, burst_capture, check_arith, gate_stack_flags, gate_stack_plain,
+    gate_stack_shape, segment_cases, segment_smem_bytes, stream_geometry)
 from gen2_rfid_tpu_torch.kernels.gate_stack import stream_cases as gate_stack_cases
 from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
 
@@ -126,13 +126,34 @@ def test_gate_stack_arithmetic_is_ieee(cuda):
 
 
 def test_gate_stack_kernel_on_the_model_cases(cuda):
-    """Every input the CPU model is held to (edge lengths, run boundaries,
-    ties, all above or below, tiny and infinite samples), and the blf640
-    and 160 kHz widths, which run the general kernel."""
-    for label, y2, geo, run in gate_stack_cases():
+    """Every input the CPU models are held to (edge lengths, run and
+    segment boundaries, ties, all above or below, tiny and infinite
+    samples): the warp stream's at ReaderConfig's widths, and the segment
+    kernel's at the Miller, blf640, 160 kHz, Tari 6.25 us, Miller-8 320 kHz
+    and 8 and 16 Msps FM0 widths."""
+    for label, y2, geo, run in gate_stack_cases() + segment_cases():
         got = gate_stack_flags(y2.to(cuda), *geo, run=run)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), gate_stack_plain(y2, *geo)), label
+
+
+def test_gate_stack_segment_kernel_shape(cuda):
+    """The segment kernel's shared memory is the Python mirror's, at least
+    one block fits an SM, and the automatic segment makes one wave."""
+    for label, geo in SEGMENT_GEOS.items():
+        shp = gate_stack_shape(4_000_000, *geo[:3])
+        assert shp["smem_bytes"] == segment_smem_bytes(*geo[:3]), label
+        assert shp["blocks_per_sm"] >= 1 and shp["threads"] == 256, label
+        assert shp["grid"] <= shp["blocks_per_sm"] * shp["sms"], label
+        assert gate_stack_shape(4_000_000, *geo[:3], run=100)["run"] == 100, label
+
+
+def test_gate_stack_raises_on_widths_the_kernels_cannot_take(cuda):
+    y2 = torch.zeros((2, 1000), device=cuda)
+    with pytest.raises(ValueError, match="levels"):
+        gate_stack_flags(y2, 8192, 2, 96, 0.75)
+    with pytest.raises(ValueError, match="shared memory"):
+        gate_stack_flags(y2, 100, 2, 1_000_000, 0.75)
 
 
 def _auto_run(ny, sms):
@@ -263,7 +284,7 @@ def test_probe_kernel_matches_plain(cuda, shape):
 # ---- Miller, wideband and stream paths -----------------------------------------
 
 # bench_configs.py's Miller geometries: gate_front's runtime-bound build and
-# gate_stack's shared-memory kernel.
+# gate_stack's segment kernel.
 MILLER_WIDTHS = [dict(miller_m=4, decim=1), dict(miller_m=2, decim=2),
                  dict(miller_m=8, trext=1, adc_rate=8e6, decim=2)]
 
@@ -280,6 +301,20 @@ def test_kernels_at_miller_widths(cuda, kw):
     geo_s = (c.win_length, c.n_samples_pw // 2, c.n_samples_t1, c.thresh_fraction)
     y2 = burst_capture(100_001, 3).to(cuda)
     assert torch.equal(gate_stack_flags(y2, *geo_s), gate_stack_plain(y2, *geo_s)), geo_s
+
+
+@pytest.mark.parametrize("adc", [10e6, 16e6])
+def test_gate_front_kernel_at_high_rates(cuda, adc):
+    """At 10 and 16 Msps, decim 1 (W 2500 and 4000): the tile's halo needs
+    more y passes than ReaderConfig's; the wrapper's tile is BLOCK_Y."""
+    from gen2_rfid_tpu_torch.kernels.gate_front import fitting_block_y, front_taps
+
+    c = ReaderConfig(adc_rate=adc, decim=1)
+    geo = (c.decim, front_taps(c), c.win_length, c.dc_length)
+    assert fitting_block_y(*geo) == BLOCK_Y
+    x2 = torch.from_numpy(_noise(300_007, 13)).to(cuda)
+    for g, w in zip(gate_front(x2, *geo), gate_front_plain(x2, *geo)):
+        assert torch.equal(g, w), geo
 
 
 def _same_int_fields(got, want):
@@ -306,6 +341,28 @@ def test_miller_decode_on_card(cuda):
     assert kernels.launches["gate_stack"] == before["gate_stack"] + 1
     assert kernels.launches["gate_scan"] == before["gate_scan"]
     assert int(st.n_epc_correct) == 3
+    st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
+    _same_int_fields(dec, dec_c)
+    _same_int_fields(st, st_c)
+
+
+@pytest.mark.parametrize("adc", [8e6, 16e6])
+def test_decode_at_high_rates_on_card(cuda, adc):
+    """FM0 at 8 and 16 Msps, decim 1 (W 2000 and 4000): through one launch
+    of each front kernel, equal to the CPU decode on every int/bool field."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    c = ReaderConfig(adc_rate=adc, decim=1, max_events=64)
+    tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=3, seed=1)
+    x2 = to_planar(tr.iq)
+    before = dict(kernels.launches)
+    st, dec = decode_capture_planar(x2.to(cuda), c)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_front"] == before["gate_front"] + 1
+    assert kernels.launches["gate_stack"] == before["gate_stack"] + 1
+    assert int(st.n_epc_correct) == 3 and int(st.tag_reads[27]) == 3
     st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
     _same_int_fields(dec, dec_c)
     _same_int_fields(st, st_c)
