@@ -112,11 +112,26 @@ then:
     through exactly one launch of each front kernel, every EPC of tag 27,
     equal to the CPU decode on every int/bool field, timed and profiled;
     both kernels timed beside their bounds, the segment kernel with its
-    shape and sweep.
+    shape and sweep;
+17. the closed-loop live reader (``runtime/live.py::LiveReader``): portal24,
+    tests/test_population.py's 24-tag session inventory (backlog Q, SIC,
+    A/B targets, 40 round commands), with the JAX package's counts (277
+    queries, 96 EPCs, 3 target flips, every tag read 4 times), exactly one
+    gate_front and one gate_stack launch a window decode, its block shapes,
+    slot latency and a profile of its first slots (device ops, host syncs
+    and busy share a slot, the channel's host synthesis); the EPC-window
+    SIC pair, the link ladder under a -20 dBc interferer and a TAM1 scene,
+    each equal to the port's CPU run on every integer field of LiveStats;
+    ``python -m gen2_rfid_tpu_torch.apps.reader live --rounds 3 --tags 27 9
+    --sic`` in a child process; both front kernels bit-equal to their
+    plain versions at every live shape of portal24 and the ladder, and
+    timed there beside their bounds.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
 shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
-and gate_stack's their launches in the CLI's decode under ``launches_cli``;
+and gate_stack's their launches in the CLI's decode under ``launches_cli``,
+in portal24 under ``launches_live`` and their live shapes' rows under
+``live_shapes``;
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
 limit, and last
@@ -1119,6 +1134,197 @@ def phase_cli(dev, iq_b, tr_g):
     return main_launches, exact_launches
 
 
+# Phase 17: the closed-loop live reader.  portal24 is tests/test_population.py's
+# scene (24 tags, backlog Q from 0, SIC, A/B sessions, 40 round commands);
+# the JAX package's counts for it, from its run on the CPU: queries, EPCs,
+# target flips, second EPCs from EPC-window SIC, collided slots and the
+# largest Q; every tag is read once a pass, 4 times.
+PORTAL24 = {"n_queries": 277, "n_epc_correct": 96, "n_target_flips": 3,
+            "n_epc_sic_second": 0, "n_collision_slots": 64, "max_q": 4}
+# The shorter scenes held to the port's CPU run, each with its own check:
+# the EPC-window SIC pair reads "6 3"; the link ladder walks FM0 -> M2 -> M4
+# under a -20 dBc 40 kHz interferer, so the segment kernel runs at Miller-4's
+# live shapes; TAM1 authenticates twice.
+LIVE_SCENES = (
+    ("sic_pair", lambda st: (st.n_epc_correct, st.n_epc_sic_second) == (6, 3)),
+    ("ladder", lambda st: [m for _, m in st.link_trace] == [2, 4]),
+    ("auth", lambda st: (st.n_auth_ok, st.n_auth_fail) == (2, 0)),
+)
+# Slots of the profiled window: a fresh portal24 reader's first 5 round
+# commands (Q 0, 1, 2, 3, 4).
+PROFILE_ROUNDS = 5
+
+
+def live_profile(label, rounds):
+    """torch.profiler over a fresh portal24 reader's first ``rounds`` round
+    commands: device ops and host syncs a slot, the device's busy share of
+    the window, and the share of the slots' time in the channel's host
+    synthesis."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gen2_rfid_tpu_torch.tools.live_scenes import ExchangeTimer, build_scene
+
+    reader, channel, _ = build_scene("portal24")
+    timer = ExchangeTimer(channel)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = reader.run_inventory(channel, rounds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    slots = st.n_queries
+    events = prof.key_averages()
+    dev_rows = [(e.self_device_time_total, e.count, e.key) for e in events
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(r[0] for r in dev_rows)
+    n_ops = sum(r[1] for r in dev_rows)
+    syncs = sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"))
+    copies = sum(e.count for e in events if e.key.startswith("cudaMemcpy"))
+    synth_s = sum(timer.seconds.values())
+    out = {"slots": slots, "wall_ms_per_slot": wall_us / slots / 1e3,
+           "device_ops_per_slot": n_ops / slots, "device_busy_ms_per_slot": busy_us / slots / 1e3,
+           "busy_share": busy_us / wall_us, "syncs_per_slot": syncs / slots,
+           "memcpy_per_slot": copies / slots,
+           "synthesis_share": synth_s / sum(st.slot_latency_s)}
+    log(f"[{label}] {slots} slots: wall {out['wall_ms_per_slot']:.3f} ms/slot under the "
+        f"profiler, device busy {out['device_busy_ms_per_slot']:.4f} ms/slot "
+        f"({100 * out['busy_share']:.1f}% busy), {out['device_ops_per_slot']:.1f} device ops/slot, "
+        f"{out['syncs_per_slot']:.2f} host syncs/slot, {out['memcpy_per_slot']:.2f} "
+        f"cudaMemcpy calls/slot; channel synthesis {100 * out['synthesis_share']:.1f}% "
+        f"of slot time ({synth_s * 1e3 / slots:.3f} ms/slot)")
+    for t, count, key in sorted(dev_rows, reverse=True)[:10]:
+        log(f"[{label}] {t / slots:9.2f} us/slot {count:6d} calls  {key[:90]}")
+    return out
+
+
+def phase_live(dev, both, fmt):
+    """Phase 17: the closed-loop live reader on the card.  portal24 with the
+    JAX package's counts, exactly one gate_front and one gate_stack launch a
+    window decode, its block shapes and slot latency, and a profile of its
+    first slots; three shorter scenes equal to the port's CPU runs; the
+    CLI's ``live`` in a child process; both front kernels bit-equal to
+    their plain versions at every live shape of portal24 and the ladder,
+    and timed there beside their bounds.  Returns {kernel: (launches,
+    shape rows)}."""
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_stack import (
+        gate_stack_flags, gate_stack_plain, gate_stack_shape)
+    from gen2_rfid_tpu_torch.tools.live_scenes import (
+        DecodeLog, ExchangeTimer, build_scene, integer_fields)
+
+    # portal24: counts, launches, shapes, latency.
+    reader, channel, n_rounds = build_scene("portal24")
+    check(reader.device.type == "cuda", f"portal24 reader on {reader.device}, not the card")
+    decodes = DecodeLog(reader)
+    timer = ExchangeTimer(channel)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st = reader.run_inventory(channel, n_rounds)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    portal_launches = got = dict(kernels.launches)
+    n_dec = len(decodes.calls)
+    reads = {t: int(st.tag_reads[t]) for t in range(0x10, 0x10 + 24)}
+    counts = {"n_queries": st.n_queries, "n_epc_correct": st.n_epc_correct,
+              "n_target_flips": st.n_target_flips, "n_epc_sic_second": st.n_epc_sic_second,
+              "n_collision_slots": st.n_collision_slots, "max_q": max(st.q_trace)}
+    shapes = sorted(reader._block_shapes)
+    lat = st.latency_summary()
+    synth_ms = sum(timer.seconds.values()) * 1e3
+    log(f"[portal24] {counts}; reads per tag {sorted(set(reads.values()))}; "
+        f"{n_dec} window decodes, launches {got}; {wall_s:.2f} s wall")
+    log(f"[portal24] block shapes (ADC samples, mode) {shapes}")
+    log(f"[portal24] slot latency p50 {lat['p50_ms']:.3f} / p95 {lat['p95_ms']:.3f} / "
+        f"mean {lat['mean_ms']:.3f} ms over {lat['n_slots']} slots; channel synthesis "
+        f"{synth_ms:.1f} ms in all ({100 * synth_ms / (sum(st.slot_latency_s) * 1e3):.1f}% "
+        f"of slot time)")
+    check(counts == PORTAL24, f"portal24: {counts}, the JAX package's are {PORTAL24}")
+    check(set(reads.values()) == {4}, f"portal24: reads per tag {reads}, expected 4 each")
+    check(got == {"gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "probe": 0},
+          f"portal24: launches {got} for {n_dec} window decodes, expected one "
+          f"gate_front and one gate_stack a decode")
+    check(len(shapes) <= 5, f"portal24: {len(shapes)} block shapes, expected at most 5")
+    profile = live_profile("profile portal24", PROFILE_ROUNDS)
+
+    # The shorter scenes: the card's run against the port's CPU run.
+    blocks = dict(decodes.blocks)
+    for name, ok in LIVE_SCENES:
+        reader, channel, n_rounds = build_scene(name)
+        log_s = DecodeLog(reader)
+        kernels.reset_launches()
+        st = reader.run_inventory(channel, n_rounds)
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        n_dec = len(log_s.calls)
+        reader_c, channel_c, _ = build_scene(name, device="cpu")
+        st_cpu = reader_c.run_inventory(channel_c, n_rounds)
+        a, b = integer_fields(st), integer_fields(st_cpu)
+        log(f"[live {name}] {st.n_queries} queries, {st.n_epc_correct} EPCs; {n_dec} window "
+            f"decodes, launches {got}; latency p50 {st.latency_summary()['p50_ms']:.3f} ms")
+        check(a == b, f"live {name}: card != CPU on {[k for k in a if a[k] != b[k]]}")
+        check(ok(st), f"live {name}: not its expected counts")
+        check(got["gate_front"] == n_dec == got["gate_stack"],
+              f"live {name}: launches {got} for {n_dec} window decodes")
+        log(f"[live {name}] card == CPU on every integer field of LiveStats")
+        if name == "ladder":
+            for key, block in log_s.blocks.items():
+                blocks.setdefault(key, block)
+
+    # The CLI's live subcommand as a user starts it.
+    argv = ["live", "--rounds", "3", "--tags", "27", "9", "--sic"]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "gen2_rfid_tpu_torch.apps.reader", *argv],
+                         cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    log(f"[cli python -m live] exit {out.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in (out.stdout + out.stderr).strip("\n").splitlines():
+        log(f"[cli python -m live] {line}")
+    lines = out.stdout.splitlines()
+    check(out.returncode == 0, f"python -m ... live: exit {out.returncode}")
+    for want in ("| Correctly decoded EPC : 3", "| Collided slots recovered via SIC: 3"):
+        check(want in lines, f"python -m ... live: no line {want!r}")
+
+    # The kernels at every live shape: bit-equal, shaped and timed.
+    rows = {"gate_front": [], "gate_stack": []}
+    for (cfg, n), (mode, block2) in sorted(blocks.items(),
+                                           key=lambda kv: (kv[0][0].miller_m, kv[0][1])):
+        x2 = torch.from_numpy(block2).to(dev)
+        geo_f = (cfg.decim, front_taps(cfg), cfg.win_length, cfg.dc_length)
+        geo_s = (cfg.win_length, cfg.n_samples_pw // 2, cfg.n_samples_t1, cfg.thresh_fraction)
+        got_f = gate_front(x2, *geo_f)
+        want_f = gate_front_plain(x2, *geo_f)
+        y2 = got_f[0]
+        got_s, want_s = gate_stack_flags(y2, *geo_s), gate_stack_plain(y2, *geo_s)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got_f, want_f)),
+              f"live M={cfg.miller_m} N={n}: gate_front is not bit-equal to its plain version")
+        check(torch.equal(got_s, want_s),
+              f"live M={cfg.miller_m} N={n}: gate_stack flags differ from the plain version")
+        ny = y2.shape[1]
+        shp = gate_stack_shape(ny, *geo_s[:3])
+        tf = both(lambda: gate_front(x2, *geo_f), 50)
+        ts = both(lambda: gate_stack_flags(y2, *geo_s), 50)
+        fb, fby = front_bound(n, ny, *geo_f[1:])
+        sb, sby = stack_bound(ny, cfg.win_length)
+        label = f"M={cfg.miller_m} {mode} N={n} Ny={ny}"
+        log(f"[live kernels {label}] both bit-equal to plain; gate_stack shape {shp}")
+        log(f"[time] live {label}: gate_front {fmt(tf)}, bound {fb:.6f} ms ({fby}); "
+            f"gate_stack {fmt(ts)}, bound {sb:.6f} ms ({sby})")
+        base = {"miller_m": cfg.miller_m, "mode": mode, "n": n, "ny": ny}
+        rows["gate_front"].append({**base, "ms": tf["write"], "ms_read": tf["read"],
+                                   "bound_ms": fb, "bound_by": fby})
+        rows["gate_stack"].append({**base, "ms": ts["write"], "ms_read": ts["read"],
+                                   "bound_ms": sb, "bound_by": sby, "grid": shp["grid"],
+                                   "run": shp["run"]})
+    log(f"[live] profile {json.dumps(profile)}")
+    return {k: (portal_launches[k], v) for k, v in rows.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1583,6 +1789,8 @@ def main() -> int:
 
     # ---- phase 16: 8 and 16 Msps captures, the segment kernel's widest ----
     high_rows, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
+    # ---- phase 17: the closed-loop live reader ----
+    live = phase_live(dev, both, fmt)
     segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
     segment_rows.update(high_rows)
     seg_main = segment_rows["miller4"]
@@ -1600,7 +1808,8 @@ def main() -> int:
          "plain_ms_read": front_plain_t["read"], "library_ms_read": None,
          "miller": miller_shapes["gate_front"], "launches_mrc4": mrc_launches["gate_front"],
          "launches_sic2_recovery": sic_launches["gate_front"],
-         "launches_cli": cli_launches_b["gate_front"]},
+         "launches_cli": cli_launches_b["gate_front"],
+         "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
@@ -1608,7 +1817,8 @@ def main() -> int:
          "ms": stack_t["write"], "plain_ms": stack_plain_t["write"], "bound_ms": stack_b,
          "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
          "plain_ms_read": stack_plain_t["read"], "library_ms_read": None,
-         "launches_cli": cli_launches_b["gate_stack"]},
+         "launches_cli": cli_launches_b["gate_stack"],
+         "launches_live": live["gate_stack"][0], "live_shapes": live["gate_stack"][1]},
         # The segment kernel: gate_stack at every width but ReaderConfig's.
         # Its top-level times are miller4's; "shapes" holds each timed
         # shape; "launches" counts the phase 16 decodes', each shape's row

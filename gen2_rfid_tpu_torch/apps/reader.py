@@ -1,4 +1,4 @@
-"""CLI: offline decode, trace simulation, TX spectrum, ranging.
+"""CLI: offline decode, live inventory, trace simulation, TX spectrum, ranging.
 
 PyTorch counterpart of ``gen2_rfid_tpu/apps/reader.py``, the batch-mode
 equivalent of the reference application (``apps/reader.py``, whose
@@ -8,12 +8,14 @@ prints is the JAX CLI's on the same capture, but for the wall-time lines.
 
 Every decode runs on the device that ``--device`` names, the CUDA card by
 default; without one, and without ``--device cpu``, a decode command exits
-non-zero and decodes nothing.  ``live`` waits for the port's live loop.
+non-zero and decodes nothing.  ``live`` runs the closed-loop reader
+(runtime/live.py) on the same device.
 
 Usage:
   python -m gen2_rfid_tpu_torch.apps.reader decode CAPTURE.bin [--chunked] [--q Q]
   python -m gen2_rfid_tpu_torch.apps.reader simulate OUT.bin [--rounds N] [--tags ...]
   python -m gen2_rfid_tpu_torch.apps.reader golden OUT.bin
+  python -m gen2_rfid_tpu_torch.apps.reader live [--rounds N] [--tags ...] [--sic]
   python -m gen2_rfid_tpu_torch.apps.reader --device cpu decode CAPTURE.bin
 """
 
@@ -282,6 +284,195 @@ def cmd_txspec(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_live(args) -> int:
+    """Closed-loop live inventory (the reference's primary, non-DEBUG mode,
+    apps/reader.py:82-96): --radio uhd drives real hardware through
+    io.radio.UhdDriver; the default simulates the air interface."""
+    import numpy as np
+
+    from ..runtime.live import LiveReader
+    from ..runtime.stats import InventoryStats, print_results
+
+    cfg = _cfg_from_args(args)
+
+    def _parse_auth(spec):
+        """KEYID:KEYHEX -> (key_id, key).  32 hex chars = AES-128
+        (ISO 29167-10), 20 = PRESENT-80 (ISO 29167-11); the key length
+        selects the crypto suite end to end."""
+        if spec is None:
+            return None
+        kid, keyhex = spec.split(":")
+        key = bytes.fromhex(keyhex)
+        if len(key) not in (16, 10):
+            raise AssertionError("key must be 32 hex chars (AES-128) or 20 (PRESENT-80)")
+        return int(kid, 0), key
+
+    auth = _parse_auth(args.auth)
+    challenge_auth = _parse_auth(args.challenge_auth)
+
+    def _parse_secure(spec, is_read):
+        """KEYID:KEYHEX:PTR:COUNT|HEX[:BANK] -> LiveReader tuple."""
+        if spec is None:
+            return None
+        parts = spec.split(":")
+        kid, key = _parse_auth(":".join(parts[:2]))
+        ptr = int(parts[2], 0)
+        if is_read:
+            third = int(parts[3], 0)
+        else:
+            word = int(parts[3], 16)
+            third = np.array([(word >> (15 - k)) & 1 for k in range(16)],
+                             dtype=np.int64)
+        bank = parts[4] if len(parts) > 4 else "user"
+        return (kid, key, ptr, third, bank)
+
+    secure_read = _parse_secure(args.secure_read, True)
+    secure_write = _parse_secure(args.secure_write, False)
+    auth_comm_write = _parse_secure(args.auth_comm_write, False)
+    if args.radio == "uhd":
+        from ..io.radio import RadioChannel, UhdDriver
+
+        channel = RadioChannel(cfg, UhdDriver(cfg, freq=args.freq))
+    else:
+        from ..sim.channel import SimTagChannel
+        from ..sim.tag import Tag
+
+        # Simulated tags are provisioned with the reader's key (the CLI
+        # demonstrates the success path; key-mismatch behavior is covered
+        # in tests/test_auth.py).
+        keys = {spec[0]: spec[1]
+                for spec in (auth, challenge_auth, secure_read,
+                             secure_write, auth_comm_write) if spec} or None
+        # Distinct magnitudes and phases per tag (distinct ranges - also
+        # what makes collided slots separable for --sic).
+        dists = args.tag_distance or []
+        tags = [
+            Tag.with_id(t, seed=i, aes_keys=keys,
+                        distance_m=dists[i] if i < len(dists) else None,
+                        backscatter=0.08 * 0.75 ** i * np.exp(1.1j * i))
+            for i, t in enumerate(args.tags)
+        ]
+        channel = SimTagChannel(cfg, tags, seed=args.seed,
+                                session_ab=args.session_ab)
+    select_mask = None
+    if args.select_id is not None:
+        # ID byte = EPC bits 88:96 -> EPC-bank bit address 0x20 + 88.
+        mask = np.array([(args.select_id >> (7 - k)) & 1 for k in range(8)],
+                        dtype=np.int64)
+        select_mask = (mask, 0x20 + 88)
+    access_read = None
+    if args.read:
+        parts = args.read.split(":")
+        access_read = (int(parts[0], 0), int(parts[1], 0),
+                       parts[2] if len(parts) > 2 else "epc")
+    access_write = None
+    if args.write:
+        parts = args.write.split(":")
+        word = int(parts[1], 16)
+        bits = np.array([(word >> (15 - k)) & 1 for k in range(16)],
+                        dtype=np.int64)
+        access_write = (int(parts[0], 0), bits,
+                        parts[2] if len(parts) > 2 else "user")
+    link_profiles = None
+    if args.link_adapt:
+        from ..runtime.live import default_link_profiles
+
+        link_profiles = default_link_profiles(cfg)
+        cfg = link_profiles[0]
+    lbt_mhz = None
+    if args.lbt:
+        from ..runtime.live import ETSI_LOWER_MHZ
+
+        lbt_mhz = list(ETSI_LOWER_MHZ)
+    rd = LiveReader(cfg, adaptive=args.adaptive, q_init=args.q,
+                    q_mode=args.q_mode, nak_on_fail=args.nak, sic=args.sic,
+                    target_ab=args.session_ab, select_mask=select_mask,
+                    access_read=access_read, access_write=access_write,
+                    authenticate=auth, challenge_auth=challenge_auth,
+                    secure_read=secure_read, secure_write=secure_write,
+                    auth_comm_write=auth_comm_write,
+                    hop_mhz=args.hop_mhz, link_profiles=link_profiles,
+                    lbt_mhz=lbt_mhz, device=args.dev)
+    st = rd.run_inventory(channel, n_rounds=args.rounds)
+    # Reuse the byte-format report (reader_impl.cc:173-192).
+    import torch
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32)
+
+    print_results(InventoryStats(
+        n_queries=i32(st.n_queries),
+        cur_inventory_round=i32(st.cur_round),
+        cur_slot=i32(st.cur_slot),
+        n_epc_correct=i32(st.n_epc_correct),
+        tag_reads=torch.as_tensor(st.tag_reads),
+        unique_tags_round=torch.zeros(1, dtype=torch.int32),
+        n_rounds_closed=i32(st.cur_round - 1),
+        n_events=i32(st.n_queries),
+        terminated=torch.tensor(False),
+        n_slot_empty=i32(st.n_empty_slots),
+        n_slot_single=i32(st.n_single_slots),
+        n_slot_collision=i32(st.n_collision_slots),
+        cmd_counts=torch.zeros(6, dtype=torch.int32),
+    ))
+    lat = st.latency_summary()
+    if lat:
+        print(f"| Slot latency: {lat['p50_ms']:.1f} ms p50 / "
+              f"{lat['p95_ms']:.1f} ms p95 over {lat['n_slots']} slots")
+    if st.n_sic_recovered:
+        print(f"| Collided slots recovered via SIC: {st.n_sic_recovered}")
+    if st.n_epc_sic_second:
+        print("| Extra EPCs from EPC-window SIC residuals: "
+              f"{st.n_epc_sic_second}")
+    if st.n_qadjust:
+        print(f"| QueryAdjust sent: {st.n_qadjust}  (Q trace: "
+              f"{' '.join(map(str, st.q_trace))})")
+    if st.n_target_flips:
+        print(f"| Inventory target flips (A<->B): {st.n_target_flips}")
+    if st.n_lbt_defers or st.lbt_trace:
+        moves = " -> ".join(f"{f:.1f}" for _, f in st.lbt_trace)
+        print(f"| LBT: {st.n_lbt_defers} busy-channel defers"
+              + (f" ({moves} MHz)" if moves else ""))
+    if st.link_trace:
+        walk = " -> ".join(f"M{m}" if m > 1 else "FM0"
+                           for _, m in st.link_trace)
+        print(f"| Link adaptation: {len(st.link_trace)} switches "
+              f"({walk}), final "
+              f"{'M%d' % rd.cfg.miller_m if rd.cfg.miller_m > 1 else 'FM0'}")
+    if st.n_req_rn_ok:
+        print(f"| Access: {st.n_req_rn_ok} handles, {st.n_read_ok} Reads, "
+              f"{st.n_write_ok} Writes OK")
+        for tid, words in sorted(st.read_words.items()):
+            hexw = "".join(f"{int(''.join(map(str, words[k:k+16])), 2):04x} "
+                           for k in range(0, len(words), 16))
+            print(f"| Tag {tid:#x} read data: {hexw.strip()}")
+    if st.n_auth_ok or st.n_auth_fail or st.n_buffer_auth_ok:
+        print(f"| Authentication: {st.n_auth_ok} TAM1 OK, "
+              f"{st.n_buffer_auth_ok} buffered OK, "
+              f"{st.n_auth_fail} crypto failures")
+    if st.n_secure_read_ok or st.n_secure_write_ok or st.n_auth_comm_ok:
+        print(f"| SecureComm: {st.n_secure_read_ok} reads OK, "
+              f"{st.n_secure_write_ok} writes OK; AuthComm: "
+              f"{st.n_auth_comm_ok} OK")
+        for t, words in sorted(st.secure_read_words.items()):
+            w = "".join(f"{int(''.join(map(str, words[k: k + 16])), 2):04x}"
+                        for k in range(0, words.size, 16))
+            print(f"| Tag {t:#x} secure read data: {w}")
+    if st.error_counts:
+        errs = ", ".join(f"{n}x {name}"
+                         for name, n in sorted(st.error_counts.items()))
+        print(f"| Tag error replies: {errs}")
+    if args.hop_mhz:
+        for tid in sorted(np.nonzero(np.asarray(st.tag_reads))[0]):
+            est = rd.stats.range_estimate(int(tid))
+            if est:
+                print(f"| Tag {tid:#04x}: live PDOA range "
+                      f"{est['range_m']:.3f} m (fit residual "
+                      f"{est['resid_rad']:.3f} rad over "
+                      f"{len(args.hop_mhz)} carriers)")
+    return 0
+
+
 def cmd_range(args) -> int:
     """PDOA ranging: decode one capture per FCC hop channel and fit each
     tag's range from the phase slope across carriers (runtime/ranging.py)."""
@@ -424,6 +615,89 @@ def build_parser() -> argparse.ArgumentParser:
     g = sub.add_parser("golden", help="regenerate the golden test capture")
     g.add_argument("out")
     g.set_defaults(fn=cmd_golden, decodes=False)
+
+    lv = sub.add_parser("live", help="closed-loop live inventory "
+                        "(simulated air interface, or --radio uhd)")
+    lv.add_argument("--radio", choices=["sim", "uhd"], default="sim")
+    lv.add_argument("--freq", type=float, default=910e6,
+                    help="carrier frequency for --radio uhd")
+    lv.add_argument("--rounds", type=int, default=10)
+    lv.add_argument("--tags", type=int, nargs="+", default=[27])
+    lv.add_argument("--q", type=int)
+    lv.add_argument("--blf", type=float)
+    lv.add_argument("--miller", type=int, choices=[1, 2, 4, 8])
+    lv.add_argument("--adaptive", action="store_true",
+                    help="adaptive Q (QueryAdjust); controller per --q-mode")
+    lv.add_argument("--q-mode", choices=["annexd", "backlog"],
+                    default="annexd",
+                    help="Q controller: Annex-D +-C walk, or the "
+                         "backlog-estimating controller (Schoute occupancy "
+                         "+ SIC multiplicity; jumps to log2(n) and locks)")
+    lv.add_argument("--nak", action="store_true",
+                    help="transmit NAK on failed EPC CRC")
+    lv.add_argument("--softfix", type=int, metavar="K", default=0,
+                    help="CRC-guided soft recovery of failed EPC frames "
+                         "(runtime/softfix.py)")
+    lv.add_argument("--link-adapt", action="store_true",
+                    help="link-rate adaptation: walk the FM0 -> Miller-2 "
+                         "-> Miller-4 ladder down on failing/silent rounds "
+                         "(e.g. dense-reader interference) and back up on "
+                         "sustained clean rounds; Queries command the M, "
+                         "tags follow per Gen2 6.3.2.12.1")
+    lv.add_argument("--sic", action="store_true",
+                    help="collision recovery: ACK the dominant collider "
+                         "(successive interference cancellation, FM0)")
+    lv.add_argument("--read", metavar="PTR:COUNT[:BANK]",
+                    help="after each correct EPC run the Gen2 access "
+                         "sequence (Req_RN -> handle -> Read) and fetch "
+                         "COUNT words from word PTR (BANK epc|user, "
+                         "default epc)")
+    lv.add_argument("--write", metavar="PTR:HEX[:BANK]",
+                    help="Gen2 Write: store the 16-bit HEX word at word "
+                         "PTR (BANK epc|user, default user; EPC-bank "
+                         "writes re-label the tag), cover-coded per spec")
+    lv.add_argument("--auth", metavar="KEYID:KEYHEX",
+                    help="Gen2 v2 tag authentication (ISO 29167-10 AES-128 "
+                         "TAM1): after each correct EPC send Authenticate "
+                         "with a fresh 96-bit challenge and crypto-verify "
+                         "the 128-bit response (KEYHEX = 32 hex chars)")
+    lv.add_argument("--challenge-auth", metavar="KEYID:KEYHEX",
+                    help="broadcast-Challenge variant: tags precompute the "
+                         "TAM1 response; ReadBuffer fetches + verifies it "
+                         "after singulation")
+    lv.add_argument("--secure-read", metavar="KEYID:KEYHEX:PTR:COUNT[:BANK]",
+                    help="Gen2 v2 SecureComm confidential read: TAM1 "
+                         "session + encrypted Read of COUNT words at PTR "
+                         "(default bank user) - the words never travel "
+                         "in clear")
+    lv.add_argument("--secure-write", metavar="KEYID:KEYHEX:PTR:HEX[:BANK]",
+                    help="Gen2 v2 SecureComm confidential write of the "
+                         "16-bit HEX word at PTR (default bank user)")
+    lv.add_argument("--auth-comm-write",
+                    metavar="KEYID:KEYHEX:PTR:HEX[:BANK]",
+                    help="Gen2 v2 AuthComm: MAC-authenticated (cleartext) "
+                         "Write - a keyless rogue reader cannot forge it")
+    lv.add_argument("--select-id", type=lambda s: int(s, 0),
+                    help="transmit a Gen2 Select first and inventory only "
+                         "tags whose ID byte (EPC bits 88:96) matches")
+    lv.add_argument("--session-ab", action="store_true",
+                    help="session inventory: tags toggle inventoried flags "
+                         "when singulated; the reader flips its Query "
+                         "target on an empty round (one read per tag per "
+                         "pass)")
+    lv.add_argument("--lbt", action="store_true",
+                    help="listen-before-talk over the ETSI EN 302 208 "
+                         "4-channel plan: sense (TX off) before each "
+                         "Query round and move off busy channels")
+    lv.add_argument("--hop-mhz", type=float, nargs="+", metavar="F",
+                    help="FCC frequency hopping: cycle these carriers "
+                         "(MHz) each Query round; a hopping session "
+                         "yields per-tag live PDOA range")
+    lv.add_argument("--tag-distance", type=float, nargs="*",
+                    help="per-tag range in meters for the simulated air "
+                         "interface (the hopping PDOA observable)")
+    lv.add_argument("--seed", type=int, default=99)
+    lv.set_defaults(fn=cmd_live, decodes=True)
     return p
 
 

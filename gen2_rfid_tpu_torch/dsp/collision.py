@@ -67,8 +67,8 @@ class EpcSicResult(NamedTuple):
     cancel: torch.Tensor   # (n_tags,) float32 cumulative energy removed
 
 
-def _check_tf32(x: torch.Tensor) -> None:
-    if x.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+def _check_tf32(device: torch.device) -> None:
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("SIC needs full float32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
 
@@ -213,7 +213,7 @@ def _best_template(frames: torch.Tensor, bits: torch.Tensor, idx: torch.Tensor, 
     """The LS-best hypothesis of each window's template bank
     (collision.py:217-236, 308-317): its window positions (E, L), samples
     xw (E, L) complex, template (E, L) and amplitude (E,) complex."""
-    _check_tf32(frames)
+    _check_tf32(frames.device)
     basis, c_hyp, l_win, shift0 = _bank_device(cfg, n_bits, frames.device)
     e, w = frames.shape
     if w < l_win:

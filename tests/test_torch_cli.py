@@ -39,6 +39,8 @@ from torch_compare import one_torch_thread, two_reader_wideband  # noqa: F401
 
 WALL = re.compile(r"^\| (Decoded \d+ samples|Channelized\+decoded \d+ wideband samples) "
                   r"in \d+\.\d\d s \(\d+\.\d Msamples/s\)$")
+# live's per-slot wall time: its slot count is kept.
+LATENCY = re.compile(r"^\| Slot latency: \d+\.\d ms p50 / \d+\.\d ms p95 over (\d+) slots$")
 HOPS_MHZ = (902.75, 915.25, 927.25)
 
 
@@ -48,7 +50,9 @@ def _masked(text):
     out = []
     for line in text.splitlines():
         m = WALL.match(line)
-        out.append(f"<{m.group(1)}>" if m else line)
+        lat = LATENCY.match(line)
+        out.append(f"<{m.group(1)}>" if m else f"<latency over {lat.group(1)} slots>"
+                   if lat else line)
     return out
 
 
@@ -259,13 +263,14 @@ def test_txspec_matches_jax(capsys, argv, rc):
 
 
 def test_no_device_refuses(capsys, caps, monkeypatch):
-    """Without CUDA and without --device the decode commands exit non-zero
-    with resolve_device's message and print no report; the commands that
-    decode nothing still run."""
+    """Without CUDA and without --device the decode commands and live exit
+    non-zero with resolve_device's message and print no report; the
+    commands that decode nothing still run."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     capsys.readouterr()
     for argv in (["decode", caps["a"]], ["decode", caps["a"], "--chunked"],
-                 ["range", caps["hop0"], "--freqs-mhz", "902.75"]):
+                 ["range", caps["hop0"], "--freqs-mhz", "902.75"],
+                 ["live", "--rounds", "1"]):
         assert reader.main(argv) != 0
         out, err = capsys.readouterr()
         assert out == "" and "no CUDA device" in err and "--device cpu" in err
@@ -280,8 +285,8 @@ def test_main_turns_tf32_off(capsys, caps, monkeypatch):
 
 
 def test_parser_has_every_decode_flag_of_the_jax_cli():
-    """The decode, range, simulate, txspec and golden options are the JAX
-    CLI's; the port adds only --device and leaves out live."""
+    """Every subcommand's options are the JAX CLI's, live's too; the port
+    adds only --device."""
     from gen2_rfid_tpu.apps.reader import build_parser as ref_parser
 
     def options(p):
@@ -293,6 +298,31 @@ def test_parser_has_every_decode_flag_of_the_jax_cli():
     top, cmds = options(reader.build_parser())
     ref_top, ref_cmds = options(ref_parser())
     assert top == ref_top | {"--device"}
-    assert set(cmds) == set(ref_cmds) - {"live"}
+    assert set(cmds) == set(ref_cmds)
     for name, opts in cmds.items():
         assert opts == ref_cmds[name], name
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["live", "--rounds", "3", "--tags", "27", "9", "--sic"],
+     ["| Correctly decoded EPC : 3", "| Collided slots recovered via SIC: 3"]),
+    (["live", "--rounds", "8", "--tags", "16", "32", "48", "--q", "2", "--session-ab"],
+     ["| Inventory target flips (A<->B): 3"]),
+], ids=["sic", "session_ab"])
+def test_live_matches_jax(capsys, argv, want):
+    """The closed-loop inventory prints the JAX CLI's lines, its slot
+    latency line but for the times: the SIC pair reads 3 EPCs and recovers
+    3 collided slots, the session inventory flips its target 3 times."""
+    got = _same(capsys, argv)
+    assert set(want) <= set(got)
+    assert any(line.startswith("<latency over ") for line in got)
+
+
+def test_live_uhd_radio_fails_as_the_jax_cli_does(capsys):
+    """Without the uhd package ``--radio uhd`` raises the radio adapter's
+    error in both CLIs."""
+    with pytest.raises(RuntimeError) as ref_err:
+        ref_main(["live", "--radio", "uhd", "--rounds", "1"])
+    with pytest.raises(RuntimeError) as err:
+        reader.main(["--device", "cpu", "live", "--radio", "uhd", "--rounds", "1"])
+    assert str(err.value) == str(ref_err.value) and "uhd" in str(err.value)

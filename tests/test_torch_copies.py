@@ -4,8 +4,9 @@ The port imports nothing of ``gen2_rfid_tpu``, so it keeps its own copies of
 the configuration, the CRC, the tag crypto suites, the simulator chain and
 its RX impairments, the SigMF and raw trace readers and writers (with the
 EPC tag-data standards its annotations name), the ranging estimators, the
-command sniffer, the TX spectrum, the native engine's C++ source and the
-fixtures' recipes.  These tests hold
+command sniffer, the TX spectrum, the native engine's C++ source, the
+fixtures' recipes, the live loop's simulated air interface and radio
+adapter, and its access, RF-management and statistics mixins.  These tests hold
 each copy to its original: the source text, every relative import (which
 must resolve inside the port), every config field and derived property, the
 simulator's captures and crypto answers, and the fixtures' bytes.
@@ -37,7 +38,8 @@ REPO = Path(__file__).resolve().parents[1]
 COPIES = ["config.py", "protocol/crc.py", "protocol/crypto.py", "protocol/gen2.py",
           "protocol/tds.py", "tx/pie.py", "sim/tag.py", "sim/trace.py", "io/sigmf.py",
           "runtime/ranging.py", "io/tracefile.py", "runtime/sniffer.py", "tx/spectrum.py",
-          "sim/impairments.py", "native/gen2_stream.cc"]
+          "sim/impairments.py", "native/gen2_stream.cc", "sim/channel.py", "io/radio.py",
+          "runtime/live_access.py", "runtime/live_rf.py", "runtime/live_stats.py"]
 # The copies whose relative imports resolve: the C++ engine source has none.
 PY_COPIES = [rel for rel in COPIES if rel.endswith(".py")]
 

@@ -538,3 +538,39 @@ def test_cli_wideband_turns_tf32_off(cuda, tmp_path, capsys):
     out = capsys.readouterr().out
     for k, tag in occupied.items():
         assert f"=== channel {k} " in out and f"| Tag ID : {tag:x}  Num of reads : 2" in out
+
+
+# ---- the live loop -------------------------------------------------------------
+
+def test_live_inventory_on_card(cuda):
+    """The EPC-window SIC pair's live inventory on the card: every integer
+    field of LiveStats equal to the CPU run's ("6 3"), through exactly one
+    launch of gate_front and of gate_stack a window decode."""
+    from gen2_rfid_tpu_torch.tools.live_scenes import DecodeLog, build_scene, integer_fields
+
+    reader, channel, n_rounds = build_scene("sic_pair")
+    assert reader.device.type == "cuda"
+    decodes = DecodeLog(reader)
+    before = dict(kernels.launches)
+    st = reader.run_inventory(channel, n_rounds)
+    torch.cuda.synchronize()
+    n_dec = len(decodes.calls)
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "probe": 0}
+    reader_c, channel_c, _ = build_scene("sic_pair", device="cpu")
+    assert integer_fields(st) == integer_fields(reader_c.run_inventory(channel_c, n_rounds))
+    assert (st.n_epc_correct, st.n_epc_sic_second) == (6, 3)
+
+
+def test_live_sic_refuses_tf32(cuda):
+    """A SIC reader on the card refuses at construction while TF32 matmuls
+    are allowed, with the SIC calls' message; a reader without SIC runs."""
+    from gen2_rfid_tpu_torch.runtime.live import LiveReader
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            LiveReader(CFG, sic=True)
+        assert LiveReader(CFG).device.type == "cuda"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
