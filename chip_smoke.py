@@ -125,13 +125,30 @@ then:
     ``python -m gen2_rfid_tpu_torch.apps.reader live --rounds 3 --tags 27 9
     --sic`` in a child process; both front kernels bit-equal to their
     plain versions at every live shape of portal24 and the ladder, and
-    timed there beside their bounds.
+    timed there beside their bounds;
+18. the time- and channel-sharded decode (``shard/``): the bench capture
+    padded to a multiple of 8 x decim at n_time 1, 2 and 8 on positions of
+    the card, longcap (the bench trace tiled 32 times, 38.8 M samples) and
+    full-size miller4 and blf640 at 8, each through exactly n_time launches
+    of each front kernel, with each shard's gate count beside its table's
+    capacity, stats in every field and owned trigger indices equal to the
+    single decode, timed beside it and the bench n_time 8 decode profiled;
+    both front kernels bit-equal to their plain versions at a bench shard's
+    extended shape and timed there; wideband8 through
+    ``decode_wideband_sharded`` on a 2 time x 2 chan mesh (phase 11's
+    counts, one gate_front and one gate_stack a time shard and channel);
+    the bench capture as a file through ``shard/launch.py::run_local``, two
+    CUDA worker processes of four shards each, their agreed record equal to
+    the single decode's, timed beside a bare process start;
+    ``dryrun_multichip(8)``.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
 shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
 and gate_stack's their launches in the CLI's decode under ``launches_cli``,
 in portal24 under ``launches_live`` and their live shapes' rows under
-``live_shapes``;
+``live_shapes``, in the bench n_time 8 sharded decode under
+``launches_sharded`` and their times at its shard shape under
+``sharded_shape``;
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
 limit, and last
@@ -1325,6 +1342,250 @@ def phase_live(dev, both, fmt):
     return {k: (portal_launches[k], v) for k, v in rows.items()}
 
 
+# Phase 18's per-run table caps: the bench capture's 1,280 command events
+# at n_time 1, 2 and 8; longcap's 5,120 at 8; miller4 (960) and blf640
+# (520) at 8.
+SHARDED_BENCH = ((1, 1536), (2, 1024), (8, 256))
+SHARDED_CASES = (
+    ("miller4", dict(miller_m=4, decim=1, max_events=1280), 24, 480),
+    ("blf640", dict(blf_hz=640e3, adc_rate=8e6, decim=2, max_events=768), 13, 260),
+)
+
+
+def sharded_run(label, x2, cfg, n_time, eps, single, want_epc, dev):
+    """One time-sharded decode of the planar (2, N) ``x2`` over ``n_time``
+    positions of ``dev``, the counts set to 0 just before it and read just
+    after: exactly n_time launches of each front kernel, every EPC, each
+    shard's gate count within its table, and stats in every field and the
+    owned trigger indices equal to ``single``, the single decode of the same
+    capture.  Returns (launches, decoder)."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.shard.decode_sharded import make_sharded_decoder
+    from gen2_rfid_tpu_torch.shard.mesh import make_mesh
+
+    decoder = make_sharded_decoder(cfg, make_mesh(n_time, devices=[dev] * n_time), eps)
+    kernels.reset_launches()
+    st, dec, gated = decoder(x2[None], with_gated=True)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    gated = gated[:, 0].tolist()
+    log(f"[{label} n_time={n_time}] launches {got}; gate triggers a shard, halo included "
+        f"{gated} against a table of {eps}; {int(st.n_epc_correct[0])} EPCs")
+    check(got == {"gate_front": n_time, "gate_stack": n_time, "gate_scan": 0, "probe": 0},
+          f"{label} n_time={n_time}: launches {got}, expected {n_time} of each front kernel")
+    check(max(gated) <= eps, f"{label} n_time={n_time}: a shard gated {max(gated)} > {eps}")
+    check(int(st.n_epc_correct[0]) == want_epc,
+          f"{label} n_time={n_time}: {int(st.n_epc_correct[0])} EPCs, expected {want_epc}")
+    st1, dec1 = single
+    for f in st1._fields:
+        check(torch.equal(getattr(st, f)[0], getattr(st1, f)),
+              f"{label} n_time={n_time}: InventoryStats.{f} != the single decode's")
+    idx = np.sort(dec.index[0][dec.valid[0]].cpu().numpy())
+    check(np.array_equal(idx, np.sort(dec1.index[dec1.valid].cpu().numpy())),
+          f"{label} n_time={n_time}: owned trigger indices != the single decode's")
+    log(f"[{label} n_time={n_time}] stats in every field and the {idx.size} owned trigger "
+        f"indices equal to the single decode's")
+    return got, decoder
+
+
+def block_kernel_checks(label, x2, cfg, n_time):
+    """Both front kernels against their plain versions on every block a
+    sharded decode of ``x2`` ((2, N), or (C, 2, N) with one block a channel)
+    over n_time shards launches them on, cut as the decoder cuts them
+    (``extended_block``): gate_front bit for bit at the padded block
+    ``front_valid`` hands it, gate_stack's flags bit for bit at the case's
+    geometry on that block's y.  Returns the (N, Ny) checked."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg, gate_stack_plain
+    from gen2_rfid_tpu_torch.shard.decode_sharded import _halo_x, extended_block, front_input
+
+    rows = x2[None] if x2.dim() == 2 else x2
+    n_loc = rows.shape[2] // n_time
+    halo = _halo_x(cfg, n_loc)
+    geo_f = (cfg.decim, front_taps(cfg), cfg.win_length, cfg.dc_length)
+    geo_s = (cfg.win_length, cfg.n_samples_pw // 2, cfg.n_samples_t1, cfg.thresh_fraction)
+    for c, row in enumerate(rows):
+        for t in range(n_time):
+            xp, k0, n_valid = front_input(extended_block(row, t, n_loc, halo), cfg)
+            got_f, want_f = gate_front(xp, *geo_f), gate_front_plain(xp, *geo_f)
+            y2 = got_f[0][:, k0:k0 + n_valid].contiguous()
+            got_s = gate_stack_for_cfg(y2, cfg) if cfg.mode != "compat" else None
+            want_s = gate_stack_plain(y2, *geo_s) if got_s is not None else None
+            torch.cuda.synchronize()
+            at = f"{label} n_time={n_time} channel {c} shard {t}: N={xp.shape[1]}"
+            check(all(torch.equal(g, w) for g, w in zip(got_f, want_f)),
+                  f"gate_front is not bit-equal to its plain version at {at}")
+            check(got_s is None or torch.equal(got_s, want_s),
+                  f"gate_stack flags differ from the plain version at {at}, Ny={n_valid}")
+    log(f"[sharded kernels] {label} n_time={n_time}: gate_front and gate_stack bit-equal "
+        f"to their plain versions on all {rows.shape[0] * n_time} blocks, N={xp.shape[1]} "
+        f"(halos {halo[0]} + {halo[1]}, padded as front_valid pads), Ny={n_valid}")
+    return xp.shape[1], n_valid
+
+
+def phase_sharded(dev, iq_b, both, fmt):
+    """Phase 18: the time- and channel-sharded decode on the card.  The bench
+    capture at n_time 1, 2 and 8, longcap, miller4 and blf640 at 8, each
+    equal to its single decode through n_time launches of each front
+    kernel, timed beside it; both kernels bit-equal to their plain versions
+    at a bench shard's extended shape and timed there; wideband8 through
+    ``decode_wideband_sharded`` on a 2 x 2 mesh; the bench capture as a file
+    through two CUDA worker processes of four shards each; the dry run on 8
+    positions.  Returns the bench n_time 8 launches and the shard-shape
+    kernel rows."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.dsp.channelizer import channelize_planar, decode_wideband_sharded
+    from gen2_rfid_tpu_torch.io.tracefile import write_trace
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front
+    from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+    from gen2_rfid_tpu_torch.shard.decode_sharded import _halo_x, extended_block, front_input
+    from gen2_rfid_tpu_torch.shard.dryrun import dryrun_multichip
+    from gen2_rfid_tpu_torch.shard.launch import run_local
+    from gen2_rfid_tpu_torch.shard.mesh import make_mesh
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    def padded(iq, mult):
+        return to_planar(np.pad(iq, (0, (-iq.size) % mult))).to(dev)
+
+    # The bench capture at n_time 1, 2 and 8.
+    cfg_b = ReaderConfig(max_events=1536)
+    x2_b = padded(iq_b, 8 * cfg_b.decim)
+    single_b = decode_capture_planar(x2_b, cfg_b)
+    single_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_b), 7)
+    times = {}
+    for n_time, eps in SHARDED_BENCH:
+        got, decoder = sharded_run("bench", x2_b, cfg_b, n_time, eps, single_b, 640, dev)
+        block_kernel_checks("bench", x2_b, cfg_b, n_time)
+        if n_time == 8:
+            bench_launches, decoder_8 = got, decoder
+        times[n_time] = cuda_ms(lambda: decoder(x2_b[None]), 7)
+    log(f"[time] bench N={x2_b.shape[1]}: single decode {single_ms:.3f} ms; sharded " + ", ".join(
+        f"n_time={t} {ms:.3f} ms ({ms / single_ms:.2f}x)" for t, ms in times.items()))
+    device_profile(lambda: decoder_8(x2_b[None]), top=8, label="profile sharded bench n_time=8")
+
+    # Both front kernels timed at one bench shard's block (shard 3 of 8), as
+    # front_valid hands it to gate_front.
+    n_loc = x2_b.shape[1] // 8
+    hl_x, hr_x = _halo_x(cfg_b, n_loc)
+    x_ext, k0, n_valid = front_input(extended_block(x2_b, 3, n_loc, (hl_x, hr_x)), cfg_b)
+    geo_f = (cfg_b.decim, front_taps(cfg_b), cfg_b.win_length, cfg_b.dc_length)
+    geo_s = (cfg_b.win_length, cfg_b.n_samples_pw // 2, cfg_b.n_samples_t1,
+             cfg_b.thresh_fraction)
+    got_f = gate_front(x_ext, *geo_f)
+    y2 = got_f[0][:, k0:k0 + n_valid].contiguous()
+    n_x, ny = x_ext.shape[1], y2.shape[1]
+    tf, ts = both(lambda: gate_front(x_ext, *geo_f), 20), both(lambda: gate_stack_flags(y2, *geo_s), 20)
+    fb, fby = front_bound(n_x, got_f[0].shape[1], *geo_f[1:])
+    sb, sby = stack_bound(ny, cfg_b.win_length)
+    log(f"[time] bench shard 3 of 8, N={n_x} (halos {hl_x} + {hr_x}, padded as front_valid "
+        f"pads), Ny={ny}: gate_front {fmt(tf)}, bound {fb:.4f} ms ({fby}); "
+        f"gate_stack {fmt(ts)}, bound {sb:.4f} ms ({sby})")
+    shard_rows = {
+        "gate_front": {"n": n_x, "ms": tf["write"], "ms_read": tf["read"], "bound_ms": fb,
+                       "bound_by": fby},
+        "gate_stack": {"ny": ny, "ms": ts["write"], "ms_read": ts["read"], "bound_ms": sb,
+                       "bound_by": sby}}
+    del got_f, x_ext, y2
+
+    # longcap: the bench trace tiled 32 times.
+    cfg_l = ReaderConfig(max_events=6144, max_num_queries=1_000_000)
+    x2_l = padded(np.concatenate([iq_b] * 4), 8 * cfg_l.decim)
+    single_l = decode_capture_planar(x2_l, cfg_l)
+    _, dec_l = sharded_run("longcap", x2_l, cfg_l, 8, 1536, single_l, 2560, dev)
+    block_kernel_checks("longcap", x2_l, cfg_l, 8)
+    t1 = cuda_ms(lambda: decode_capture_planar(x2_l, cfg_l), 3)
+    t8 = cuda_ms(lambda: dec_l(x2_l[None]), 3)
+    log(f"[time] longcap N={x2_l.shape[1]}: single decode {t1:.3f} ms, sharded n_time=8 "
+        f"{t8:.3f} ms ({t8 / t1:.2f}x)")
+    del x2_l, single_l, dec_l
+
+    # miller4 and blf640 at full size: the segment kernel on the sharded path.
+    for name, kw, reps, want_epc in SHARDED_CASES:
+        c = ReaderConfig(**kw)
+        tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=20, seed=2)
+        x2 = padded(np.concatenate([tr.iq] * reps), 8 * c.decim)
+        single = decode_capture_planar(x2, c)
+        _, dec_c = sharded_run(name, x2, c, 8, 256, single, want_epc, dev)
+        block_kernel_checks(name, x2, c, 8)
+        t1 = cuda_ms(lambda: decode_capture_planar(x2, c), 3)
+        t8 = cuda_ms(lambda: dec_c(x2[None]), 3)
+        log(f"[time] {name} N={x2.shape[1]}: single decode {t1:.3f} ms, sharded n_time=8 "
+            f"{t8:.3f} ms ({t8 / t1:.2f}x)")
+
+    # wideband8 on a 2 time x 2 chan mesh of the card.
+    wide, occupied = wideband_capture()
+    cfg_w = ReaderConfig(max_events=256)
+    mesh_w = make_mesh(2, 2, devices=[dev] * 4)
+    kernels.reset_launches()
+    st_w, _ = decode_wideband_sharded(wide, 8, cfg_w, mesh_w, events_per_shard=128)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    log(f"[wideband sharded] 2 time x 2 chan: launches {got}; EPCs a channel "
+        f"{st_w.n_epc_correct.tolist()}")
+    check(got == {"gate_front": 16, "gate_stack": 16, "gate_scan": 0, "probe": 0},
+          "wideband sharded: one gate_front and one gate_stack a (time shard, channel)")
+    for k in range(8):
+        tag, want = occupied.get(k, (0, 0))
+        n_ok = int(st_w.n_epc_correct[k])
+        check(n_ok == want and (not want or int(st_w.tag_reads[k, tag]) == want),
+              f"wideband sharded channel {k}: {n_ok} EPCs, expected {want}")
+    ch = channelize_planar(to_planar(wide).to(dev), 8, 12)
+    m_use = ch.shape[2] - ch.shape[2] % (2 * cfg_w.decim)
+    block_kernel_checks("wideband8", ch[:, :, :m_use], cfg_w, 2)
+    del ch
+    wide_ms = cuda_ms(lambda: decode_wideband_sharded(wide, 8, cfg_w, mesh_w, 128), 3)
+    log(f"[time] wideband8 sharded 2 x 2 (host capture in, channelizer included) "
+        f"{wide_ms:.3f} ms for {wide.size} samples")
+
+    # The bench capture as a file, through two CUDA worker processes.
+    path = REPO / "build" / "chip_smoke_shard" / "bench.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_trace(str(path), iq_b)
+    st_1, _ = decode_capture_planar(to_planar(iq_b).to(dev), cfg_b)
+    want_rec = {"num_processes": 2, "n_devices": 8, "n_queries": int(st_1.n_queries),
+                "n_epc_correct": int(st_1.n_epc_correct),
+                "round": int(st_1.cur_inventory_round), "unique_tags": unique_tags(st_1),
+                "tag_reads": {str(t): int(st_1.tag_reads[t])
+                              for t in torch.nonzero(st_1.tag_reads).flatten().tolist()}}
+    t0 = time.perf_counter()
+    start = subprocess.run(
+        [sys.executable, "-c", "import torch, gen2_rfid_tpu_torch.shard.distributed; "
+         "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+        cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    start_s = time.perf_counter() - t0
+    check(start.returncode == 0, f"a bare worker start failed: {start.stderr[-500:]}")
+    t0 = time.perf_counter()
+    rec = run_local(str(path), 2, 4, "cuda", events_per_shard=256, max_events=1536,
+                    timeout=600.0)
+    dist_s = time.perf_counter() - t0
+    log(f"[distributed] 2 CUDA processes x 4 shards: {json.dumps(rec, sort_keys=True)}")
+    log(f"[time] distributed bench file decode {dist_s:.2f} s wall; one process's start "
+        f"alone (interpreter, import torch and the package, CUDA context) {start_s:.2f} s")
+    check({k: rec[k] for k in want_rec} == want_rec,
+          f"distributed record {rec} != the single decode's {want_rec}")
+    path.unlink()
+
+    # The dry run on 8 positions of the card.
+    try:
+        dryrun_multichip(8)
+    except AssertionError as err:
+        raise SmokeFailure(f"dryrun_multichip(8): {err}")
+    return bench_launches, shard_rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1791,6 +2052,8 @@ def main() -> int:
     high_rows, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
     # ---- phase 17: the closed-loop live reader ----
     live = phase_live(dev, both, fmt)
+    # ---- phase 18: the time- and channel-sharded decode ----
+    sharded_launches, shard_rows = phase_sharded(dev, iq_b, both, fmt)
     segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
     segment_rows.update(high_rows)
     seg_main = segment_rows["miller4"]
@@ -1809,7 +2072,9 @@ def main() -> int:
          "miller": miller_shapes["gate_front"], "launches_mrc4": mrc_launches["gate_front"],
          "launches_sic2_recovery": sic_launches["gate_front"],
          "launches_cli": cli_launches_b["gate_front"],
-         "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1]},
+         "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1],
+         "launches_sharded": sharded_launches["gate_front"],
+         "sharded_shape": shard_rows["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
@@ -1818,7 +2083,9 @@ def main() -> int:
          "bound_by": stack_by, "library_ms": None, "ms_read": stack_t["read"],
          "plain_ms_read": stack_plain_t["read"], "library_ms_read": None,
          "launches_cli": cli_launches_b["gate_stack"],
-         "launches_live": live["gate_stack"][0], "live_shapes": live["gate_stack"][1]},
+         "launches_live": live["gate_stack"][0], "live_shapes": live["gate_stack"][1],
+         "launches_sharded": sharded_launches["gate_stack"],
+         "sharded_shape": shard_rows["gate_stack"]},
         # The segment kernel: gate_stack at every width but ReaderConfig's.
         # Its top-level times are miller4's; "shapes" holds each timed
         # shape; "launches" counts the phase 16 decodes', each shape's row

@@ -109,3 +109,25 @@ def decode_wideband(iq, n_chan: int, cfg, taps_per_branch: int = 12, device=None
     torch.backends.cuda.matmul.allow_tf32 = False
     return decode_wideband_planar(to_planar(iq).to(resolve_device(device)), n_chan, cfg,
                                   taps_per_branch)
+
+
+def decode_wideband_sharded(iq, n_chan: int, cfg, mesh, events_per_shard: int = 256,
+                            taps_per_branch: int = 12):
+    """Channelize a wideband capture and decode every channel on a (time,
+    chan) mesh (channelizer.py:180-215): the filterbank on the mesh's first
+    device, the channels cut to a multiple of n_time * decim samples, then
+    the sharded decode (shard/decode_sharded.py), channels on the ``chan``
+    axis and time blocks on the ``time`` axis.  Returns (per-channel
+    InventoryStats stacked on the channel axis, the joined DecodedEvents).
+    An entry point: it turns TF32 matmuls off."""
+    from ..runtime.inventory import to_planar
+    from ..shard.decode_sharded import make_sharded_decoder
+    from ..shard.mesh import TIME_AXIS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    iq2 = to_planar(iq).to(mesh.devices[0, 0])
+    n_time = mesh.shape[TIME_AXIS]
+    m = iq2.shape[1] // n_chan
+    m_use = m - m % (n_time * cfg.decim)
+    ch = channelize_planar(iq2, n_chan, taps_per_branch)
+    return make_sharded_decoder(cfg, mesh, events_per_shard)(ch[:, :, :m_use])

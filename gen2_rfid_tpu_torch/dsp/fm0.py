@@ -82,6 +82,13 @@ def rn16_detect_soft(frames: torch.Tensor, index: torch.Tensor,
     return _diff_decode(signs), margin
 
 
+def rn16_detect(frame: torch.Tensor, index: torch.Tensor, h_est: torch.Tensor,
+                cfg: ReaderConfig) -> torch.Tensor:
+    """Decode the 16 RN16 bits of one synced frame (fm0.py:71-75): frame
+    (W,) complex64, index and h_est its sync's scalars."""
+    return rn16_detect_soft(frame[None], index.reshape(1), h_est.reshape(1), cfg)[0][0]
+
+
 def payload_detect(frames: torch.Tensor, index: torch.Tensor, h_est: torch.Tensor,
                    cfg: ReaderConfig, n_bits: int) -> torch.Tensor:
     """Decode an n-bit FM0 payload per frame with the RN16 machinery
@@ -200,6 +207,15 @@ def epc_detect_soft(frames: torch.Tensor, magn2: torch.Tensor, index: torch.Tens
         result, signs = _slice(d, h_est)
         rel = result.abs()
     return _diff_decode(signs), t_half, rel
+
+
+def epc_detect(frame: torch.Tensor, magn2: torch.Tensor, index: torch.Tensor,
+               h_est: torch.Tensor, cfg: ReaderConfig):
+    """Decode the EPC payload bits of one synced frame (fm0.py:259-274):
+    (bits (epc_bits,), T_half estimate); magn2 is |frame - dc|^2."""
+    bits, t_half, _ = epc_detect_soft(frame[None], magn2[None], index.reshape(1),
+                                      h_est.reshape(1), cfg)
+    return bits[0], t_half[0]
 
 
 def _seq_sum(v: torch.Tensor) -> torch.Tensor:

@@ -31,16 +31,10 @@ import torch
 
 from ..carry import decoded_from_numpy, decoded_to_numpy
 from ..config import ReaderConfig
-from ..dsp.gate import gate_detect
 from ..kernels.gate_front import front_taps
-from ..kernels.gate_stack import gate_stack_for_cfg
-from ..shard.decode_sharded import front_valid, halo_sizes
+from ..shard.decode_sharded import UNOWNED, gate_block, halo_sizes
 from .inventory import DecodedEvents, decode_events, replay_inventory, resolve_device
 from .stats import InventoryStats
-
-# Index of a table row no chunk owns: it sorts after every real event.
-UNOWNED = 1 << 30
-
 
 @dataclasses.dataclass
 class StreamDecoder:
@@ -68,14 +62,7 @@ class StreamDecoder:
         """x2: planar (2, ctx_adc + chunk_adc) float32 on the device.  Owned
         local indices: [hl_y, hl_y + chunk_y)."""
         cfg = self.cfg
-        y2, amp, avgsum = front_valid(x2, cfg)
-        y = torch.complex(y2[0], y2[1])
-        if cfg.mode == "compat":
-            avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
-                                        device=x2.device)
-            events = gate_detect(y, self._cap_cfg, amp=amp, avg=avg)
-        else:
-            events = gate_detect(y, self._cap_cfg, gate_stack_for_cfg(y2, cfg))
+        y, events = gate_block(x2, cfg, self._cap_cfg)
         owned = (events.valid & (events.index >= self.hl_y)
                  & (events.index < self.hl_y + self.chunk_y))
         events = events._replace(valid=owned)

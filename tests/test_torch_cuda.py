@@ -574,3 +574,34 @@ def test_live_sic_refuses_tf32(cuda):
         assert LiveReader(CFG).device.type == "cuda"
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---- the sharded decode --------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["native", "compat"])
+def test_sharded_decode_on_card(cuda, mode):
+    """A 4-shard decode on a mesh of the card equals the same decode on a
+    mesh of the CPU: every int/bool field of the joined tables and of the
+    stats, through one gate_front (and, native, one gate_stack) launch a
+    shard."""
+    from gen2_rfid_tpu_torch.shard.decode_sharded import decode_capture_sharded
+    from gen2_rfid_tpu_torch.shard.mesh import make_mesh
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    cfg = ReaderConfig(mode=mode, max_events=256)
+    tr = synthesize_inventory(cfg, [Tag.with_id(42, seed=4)], n_rounds=8, seed=21)
+    iq = np.pad(tr.iq, (0, (-tr.iq.size) % (4 * cfg.decim)))[None]
+    before = dict(kernels.launches)
+    st, dec = decode_capture_sharded(iq, cfg, make_mesh(4, devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "gate_front": 4, "gate_stack": 4 if mode == "native" else 0, "gate_scan": 0, "probe": 0}
+    st_c, dec_c = decode_capture_sharded(iq, cfg, make_mesh(4, devices=["cpu"] * 4))
+    for f in dec._fields:
+        a = getattr(dec, f).cpu()
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, getattr(dec_c, f)), f
+    for f in st._fields:
+        assert torch.equal(getattr(st, f).cpu(), getattr(st_c, f)), f
+    assert int(st.n_epc_correct[0]) == tr.expected_epc_pass

@@ -214,6 +214,38 @@ def test_payload_detect_matches_reference(golden_iq):
     np.testing.assert_array_equal(got16[valid][0::2], dec.rn16_bits.numpy()[valid][0::2])
 
 
+def test_single_frame_detectors_match_reference(golden_iq):
+    """The public single-frame hard detectors, ``rn16_detect`` and
+    ``epc_detect``, on every valid golden window: bits equal to the JAX
+    package's and to the batched decode's, T_half to 1e-6."""
+    ref_cfg = RefConfig()
+    cfg = port_cfg(ref_cfg)
+    y2 = inv.gate_front_for_cfg(inv.to_planar(golden_iq), cfg)[0]
+    y = torch.complex(y2[0], y2[1])
+    events = inv.gate_detect(y, cfg)
+    frames, magn2, _, _ = extract_windows(y, events, cfg)
+    index, h_est = sync.tag_sync(frames, cfg)
+    valid = events.valid
+    frames, magn2, index, h_est = frames[valid], magn2[valid], index[valid], h_est[valid]
+    want_rn16 = jax.vmap(ref_fm0.rn16_detect, in_axes=(0, 0, 0, None))(
+        jnp.asarray(frames.numpy()), jnp.asarray(index.numpy()), jnp.asarray(h_est.numpy()),
+        ref_cfg)
+    want_epc, want_thalf = jax.vmap(ref_fm0.epc_detect, in_axes=(0, 0, 0, 0, None))(
+        jnp.asarray(frames.numpy()), jnp.asarray(magn2.numpy()), jnp.asarray(index.numpy()),
+        jnp.asarray(h_est.numpy()), ref_cfg)
+    batch_rn16 = fm0.rn16_detect_soft(frames, index, h_est, cfg)[0]
+    batch_epc = fm0.epc_detect_soft(frames, magn2, index, h_est, cfg)[0]
+    assert frames.shape[0] == 142
+    for e in range(frames.shape[0]):
+        rn16 = fm0.rn16_detect(frames[e], index[e], h_est[e], cfg)
+        epc, t_half = fm0.epc_detect(frames[e], magn2[e], index[e], h_est[e], cfg)
+        np.testing.assert_array_equal(rn16.numpy(), np.asarray(want_rn16[e]))
+        np.testing.assert_array_equal(rn16.numpy(), batch_rn16[e].numpy())
+        np.testing.assert_array_equal(epc.numpy(), np.asarray(want_epc[e]))
+        np.testing.assert_array_equal(epc.numpy(), batch_epc[e].numpy())
+        assert abs(float(t_half) - float(want_thalf[e])) <= 1e-6
+
+
 # ---- CW cancellation -------------------------------------------------------
 
 def _tone_scene(cancel):
