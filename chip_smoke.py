@@ -140,7 +140,20 @@ then:
     the bench capture as a file through ``shard/launch.py::run_local``, two
     CUDA worker processes of four shards each, their agreed record equal to
     the single decode's, timed beside a bare process start;
-    ``dryrun_multichip(8)``.
+    ``dryrun_multichip(8)``;
+19. the envelope sweeps (``gen2_rfid_tpu_torch/tools/``): the softfix
+    false-accept campaign whole (200,000 frames a mode at seed 0, batches of
+    4,096), native and compat, equal to the JAX tool's counts (8 and 104
+    in 200,704 frames); one row of each other twin (FM0's SNR row and
+    waterfall, the RN16 SIC sweep at ratio 0.1, the EPC one at 0.15, the
+    classifier at noise 0.064, all 24 Miller cells, one point on each
+    impairment axis, 2- and 3-hop ranging), each printed table equal to
+    the port's CPU run of the same points (a child process run meanwhile;
+    ranging's cm to one unit of their last digit), the Miller matrix
+    failing exactly its four M=2 + interferer cells, every decode through
+    exactly one gate_front and one gate_stack launch, both kernels then
+    bit-equal to their plain versions on every input shape the rows
+    launched them on, each sweep's wall time printed.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
 shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
@@ -148,7 +161,9 @@ and gate_stack's their launches in the CLI's decode under ``launches_cli``,
 in portal24 under ``launches_live`` and their live shapes' rows under
 ``live_shapes``, in the bench n_time 8 sharded decode under
 ``launches_sharded`` and their times at its shard shape under
-``sharded_shape``;
+``sharded_shape``, and their launches in phase 19's decodes under
+``launches_sweeps`` (gate_stack's stream kernel there, its segment kernel
+under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
 limit, and last
@@ -1586,6 +1601,149 @@ def phase_sharded(dev, iq_b, both, fmt):
     return bench_launches, shard_rows
 
 
+# Phase 19: the envelope sweeps (gen2_rfid_tpu_torch/tools/).  The softfix
+# campaign whole, with the JAX tool's counts from its run on the CPU
+# (tools/softfix_false_accept.py at seed 0: 49 batches of 4,096 frames,
+# false accepts a mode).
+SOFTFIX_FRAMES, SOFTFIX_BATCH, SOFTFIX_FRAMES_DRAWN = 200_000, 4096, 200_704
+SOFTFIX_JAX = {"native": 8, "compat": 104}
+
+
+def sweep_tables(device: str):
+    """Each of the sweep rows' (``tools/sweep.py``) printed lines, wall
+    seconds, decodes and kernel launches on ``device`` (the CPU's run is a
+    child process's, as JSON)."""
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.runtime import inventory
+    from gen2_rfid_tpu_torch.tools.sweep import rows, run_twin
+
+    out = []
+    for _, twin, argv, _ in rows():
+        d0, k0 = inventory.decodes["capture"], dict(kernels.launches)
+        lines, seconds = run_twin(twin, argv, device)
+        out.append({"lines": lines, "s": seconds,
+                    "decodes": inventory.decodes["capture"] - d0,
+                    "launches": {k: kernels.launches[k] - k0[k] for k in k0}})
+    return out
+
+
+def kept_kernel_checks():
+    """gate_front and gate_stack against their plain versions, bit for bit,
+    on every input the sweeps launched them on (one a shape and geometry,
+    kept by ``kernels.keep_inputs``).  Returns the (kernel, N) checked."""
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
+
+    checked = []
+    for (name, shape, *geo), x in kernels.kept.items():
+        if name == "gate_front":
+            got = gate_front(x, *geo[:4], block_y=geo[4])
+            same = all(torch.equal(g, w) for g, w in zip(got, gate_front_plain(x, *geo[:4])))
+        else:
+            same = torch.equal(gate_stack_flags(x, *geo), gate_stack_plain(x, *geo[:4]))
+        check(same, f"{name} is not bit-equal to its plain version at the sweeps' "
+                    f"shape {shape}, geometry {tuple(geo)}")
+        checked.append((name, shape[1]))
+    return checked
+
+
+def phase_sweeps(dev):
+    """Phase 19: the envelope sweeps on the card.  The softfix campaign
+    whole (200,000 frames a mode at seed 0, batches of 4,096): the JAX
+    tool's counts.  One row of each other twin (``tools/sweep.py``'s
+    ``ROWS``), its printed lines and its count of decodes equal to the port's
+    CPU run of the same rows (a child process, run meanwhile), through
+    exactly one gate_front and one gate_stack launch a decode and none
+    elsewhere; then both kernels bit-equal to their plain versions on every
+    input shape the rows gave them.  Returns the launches: gate_front's, and
+    gate_stack's by kernel body."""
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.tools.softfix_false_accept import false_accepts
+    from gen2_rfid_tpu_torch.tools.sweep import rows, table_diff
+
+    child = subprocess.Popen(
+        [sys.executable, "-c",
+         "import json, chip_smoke; print(json.dumps(chip_smoke.sweep_tables('cpu')))"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        for mode in ("native", "compat"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            accepts, frames = false_accepts(mode, SOFTFIX_FRAMES, SOFTFIX_BATCH, 0, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[sweeps] softfix {mode}: {accepts} false accepts in {frames} frames "
+                f"(rate {accepts / frames:.4g}; the JAX tool on the CPU: "
+                f"{SOFTFIX_JAX[mode]}), {wall:.3f} s wall")
+            check(frames == SOFTFIX_FRAMES_DRAWN and accepts == SOFTFIX_JAX[mode],
+                  f"softfix {mode}: {accepts} in {frames}, the JAX tool's "
+                  f"{SOFTFIX_JAX[mode]} in {SOFTFIX_FRAMES_DRAWN}")
+            check(not any(kernels.launches.values()),
+                  f"softfix launched kernels: {kernels.launches}")
+
+        kernels.reset_launches()
+        kernels.keep_inputs(True)
+        try:
+            card = sweep_tables("cuda")
+        finally:
+            kernels.keep_inputs(False)
+        launches, bodies = dict(kernels.launches), dict(kernels.stack_bodies)
+
+        out, err = child.communicate(timeout=900)
+        check(child.returncode == 0, f"the sweeps' CPU run failed: {err[-2000:]}")
+        cpu = json.loads(out.strip().splitlines()[-1])
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    for (label, _, argv, digits), c, h in zip(rows(), card, cpu):
+        label = f"{label}: {' '.join(argv)}"
+        for line in c["lines"]:
+            log(f"[sweeps {label}] {line}")
+        log(f"[time] sweep {label}: {c['s']:.3f} s wall on the card, {h['s']:.3f} s on "
+            f"the CPU; {c['decodes']} decodes, launches {c['launches']}")
+        bad = table_diff(c["lines"], h["lines"], last_digits=digits)
+        check(not bad, f"{label}: the card's table differs from the CPU's: {bad}")
+        n = c["decodes"]
+        check(n == h["decodes"], f"{label}: {n} decodes on the card, {h['decodes']} on the CPU")
+        check(c["launches"] == {"gate_front": n, "gate_stack": n, "gate_scan": 0, "probe": 0},
+              f"{label}: launches {c['launches']} for {n} native single-channel decodes, "
+              "expected one gate_front and one gate_stack launch a decode")
+    n_dec = sum(c["decodes"] for c in card)
+    check(n_dec > 0 and launches["gate_front"] == n_dec
+          and sum(bodies.values()) == launches["gate_stack"]
+          and bodies["stream"] > 0 and bodies["segment"] > 0,
+          f"sweep launches {launches}, gate_stack by body {bodies}, for {n_dec} decodes")
+    log(f"[sweeps] every table and count of decodes equals the port's CPU run of the same "
+        f"rows; {n_dec} decodes, each one gate_front and one gate_stack launch "
+        f"({bodies['stream']} stream, {bodies['segment']} segment kernel)")
+
+    checked = kept_kernel_checks()
+    torch.cuda.synchronize()
+    for name in ("gate_front", "gate_stack"):
+        ns = sorted({n for k, n in checked if k == name})
+        check(ns, f"the sweeps kept no input of {name}")
+        log(f"[sweeps kernels] {name} bit-equal to its plain version on the "
+            f"{sum(k == name for k, _ in checked)} input shapes and geometries the rows "
+            f"launched it on: {'N' if name == 'gate_front' else 'Ny'} {ns}")
+
+    miller = card[[r[0] for r in rows()].index("miller")]["lines"]
+    cells = [json.loads(line) for line in miller[:-1]]
+    failed = [(c["m"], c["blf_off"], c["interferer"], c["cfo_tracked"])
+              for c in cells if not c["exact"]]
+    check(len(cells) == 24 and all(m == 2 and interf for m, _, interf, _ in failed)
+          and len(failed) == 4 and miller[-1] == '{"summary": "20/24 exact"}',
+          f"Miller matrix: {miller[-1]}, failing {failed}; the JAX tool's run fails "
+          "exactly the four M=2 + interferer cells")
+    return {"gate_front": launches["gate_front"], "stream": bodies["stream"],
+            "segment": bodies["segment"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2054,6 +2212,8 @@ def main() -> int:
     live = phase_live(dev, both, fmt)
     # ---- phase 18: the time- and channel-sharded decode ----
     sharded_launches, shard_rows = phase_sharded(dev, iq_b, both, fmt)
+    # ---- phase 19: the envelope sweeps ----
+    sweep_launches = phase_sweeps(dev)
     segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
     segment_rows.update(high_rows)
     seg_main = segment_rows["miller4"]
@@ -2074,7 +2234,8 @@ def main() -> int:
          "launches_cli": cli_launches_b["gate_front"],
          "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1],
          "launches_sharded": sharded_launches["gate_front"],
-         "sharded_shape": shard_rows["gate_front"]},
+         "sharded_shape": shard_rows["gate_front"],
+         "launches_sweeps": sweep_launches["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
@@ -2085,7 +2246,8 @@ def main() -> int:
          "launches_cli": cli_launches_b["gate_stack"],
          "launches_live": live["gate_stack"][0], "live_shapes": live["gate_stack"][1],
          "launches_sharded": sharded_launches["gate_stack"],
-         "sharded_shape": shard_rows["gate_stack"]},
+         "sharded_shape": shard_rows["gate_stack"],
+         "launches_sweeps": sweep_launches["stream"]},
         # The segment kernel: gate_stack at every width but ReaderConfig's.
         # Its top-level times are miller4's; "shapes" holds each timed
         # shape; "launches" counts the phase 16 decodes', each shape's row
@@ -2098,7 +2260,7 @@ def main() -> int:
          "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"], "bound_ms": seg_main["bound_ms"],
          "bound_by": seg_main["bound_by"], "library_ms": None, "ms_read": seg_main["ms_read"],
          "plain_ms_read": seg_main["plain_ms_read"], "library_ms_read": None,
-         "shapes": segment_rows},
+         "shapes": segment_rows, "launches_sweeps": sweep_launches["segment"]},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",

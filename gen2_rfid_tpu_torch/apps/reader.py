@@ -51,20 +51,13 @@ def _cfg_from_args(args) -> "ReaderConfig":
     return ReaderConfig(**over)
 
 
-def _host_decoded(dec):
-    """One host copy of a decode's fields, as CPU tensors: what the numpy
-    reports (``runtime/ranging.py``, ``runtime/stats.py``) read."""
-    from ..carry import decoded_from_numpy, decoded_to_numpy
-
-    return decoded_from_numpy(decoded_to_numpy(dec))
-
-
 def cmd_decode(args) -> int:
     import functools
     import logging
 
     import numpy as np
 
+    from ..carry import host_decoded
     from ..io.tracefile import read_trace, trace_num_samples
     from ..runtime.inventory import decode_capture
     from ..runtime.stats import merge_stats, print_results
@@ -109,7 +102,7 @@ def cmd_decode(args) -> int:
         total = n0 * len(chans)
         dt = time.perf_counter() - t0
         print_results(stats)
-        host_dec = _host_decoded(last_dec) if args.verbose or args.antenna_pos else None
+        host_dec = host_decoded(last_dec) if args.verbose or args.antenna_pos else None
         if args.verbose:
             from ..runtime.stats import tag_signal_report
 
@@ -175,7 +168,7 @@ def cmd_decode(args) -> int:
             for tid, n in sorted(extra.items()):
                 print(f"| Tag {tid:#x} (SIC residual): {n} reads")
     single = not args.chunked and len(args.capture) == 1
-    host_dec = _host_decoded(last_dec) if single and (args.report or args.verbose) else None
+    host_dec = host_decoded(last_dec) if single and (args.report or args.verbose) else None
     if getattr(args, "report", None) and single:
         # Per-read JSON-lines tag report (the LLRP RO_ACCESS_REPORT
         # analogue; runtime/stats.py::tag_report_records).
@@ -476,6 +469,7 @@ def cmd_live(args) -> int:
 def cmd_range(args) -> int:
     """PDOA ranging: decode one capture per FCC hop channel and fit each
     tag's range from the phase slope across carriers (runtime/ranging.py)."""
+    from ..carry import host_decoded
     from ..io.tracefile import read_trace
     from ..runtime.inventory import decode_capture
     from ..runtime.ranging import range_from_captures, tag_phase_series
@@ -487,7 +481,7 @@ def cmd_range(args) -> int:
     for path, f_mhz in zip(args.capture, args.freqs_mhz):
         iq = read_trace(path)
         _, dec = decode_capture(iq, cfg, device=args.dev)
-        per_freq.append((f_mhz * 1e6, tag_phase_series(_host_decoded(dec), cfg)))
+        per_freq.append((f_mhz * 1e6, tag_phase_series(host_decoded(dec), cfg)))
     est = range_from_captures(per_freq)
     if not est:
         print("| No tag observed on >= 2 hop channels")

@@ -58,6 +58,12 @@ def decoded_from_numpy(fields, device="cpu"):
                             for name in DecodedEvents._fields})
 
 
+def host_decoded(dec):
+    """One host copy of a decode's fields, as CPU tensors: what the numpy
+    reports (``runtime/ranging.py``, ``runtime/stats.py``) read."""
+    return decoded_from_numpy(decoded_to_numpy(dec))
+
+
 def stats_to_numpy(stats) -> Dict[str, np.ndarray]:
     """The port's InventoryStats as a dict of numpy arrays."""
     return _to_numpy(stats)

@@ -4,11 +4,37 @@ Each wrapper adds one to its entry in ``launches`` when it launches its CUDA
 kernel, and nowhere else: a CPU tensor takes the plain PyTorch version and
 counts nothing.  A caller that wants to show that a run went through the
 kernels calls ``reset_launches()`` before it and reads ``launches`` after.
+``stack_bodies`` splits gate_stack's launches by the kernel body that ran:
+the stream kernel at ReaderConfig's widths, the segment kernel at any other.
+
+``keep_inputs(True)`` has gate_front and gate_stack keep, in ``kept``, a
+copy of the first input each launches its kernel on for every distinct
+shape and geometry, so that a caller can hold the kernels against their
+plain versions at the shapes a run gave them.
 """
 
 launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "probe": 0}
+stack_bodies = {"stream": 0, "segment": 0}
+kept = {}
+_keeping = [False]
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, stack_bodies):
+        for name in counts:
+            counts[name] = 0
+
+
+def keep_inputs(on: bool) -> None:
+    """Start (emptying ``kept``) or stop keeping the kernels' inputs."""
+    if on:
+        kept.clear()
+    _keeping[0] = on
+
+
+def keep(name: str, x, geometry: tuple) -> None:
+    """Keep a copy of ``x`` under (name, shape, *geometry) once, while on."""
+    if _keeping[0]:
+        key = (name, tuple(x.shape)) + tuple(geometry)
+        if key not in kept:
+            kept[key] = x.clone()

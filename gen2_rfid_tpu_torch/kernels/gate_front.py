@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import launches
+from . import keep, launches
 from ..config import ReaderConfig
 from ..dsp.filters import magnitude
 
@@ -132,6 +132,7 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
     if err:
         raise RuntimeError(f"gate_front kernel launch failed: CUDA error {err}")
     launches["gate_front"] += 1
+    keep("gate_front", x2, (decim, n_taps, win, dcw, block_y))
     return y2, amp, avgsum, dcsum2
 
 

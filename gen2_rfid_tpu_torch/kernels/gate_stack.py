@@ -45,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import launches
+from . import keep, launches, stack_bodies
 from ..config import ReaderConfig
 from ..dsp.filters import magnitude, run_sum
 from .gate_front import SMEM_LIMIT
@@ -503,7 +503,8 @@ def gate_stack_flags(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
         raise ValueError(f"gate_stack runs on cuda or cpu, not {y2.device}")
     if y2.dtype != torch.float32 or not y2.is_contiguous():
         raise ValueError("gate_stack takes a contiguous float32 tensor")
-    if (win, pw_half, nt1) != READER[:3]:
+    body = "stream" if (win, pw_half, nt1) == READER[:3] else "segment"
+    if body == "segment":
         why = segment_unsupported(win, pw_half, nt1)
         if why:
             raise ValueError(f"gate_stack: {why}")
@@ -519,6 +520,8 @@ def gate_stack_flags(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
     if err:
         raise RuntimeError(f"gate_stack kernel launch failed: CUDA error {err}")
     launches["gate_stack"] += 1
+    stack_bodies[body] += 1
+    keep("gate_stack", y2, (win, pw_half, nt1, frac, run))
     return flags
 
 

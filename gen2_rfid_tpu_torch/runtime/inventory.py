@@ -581,6 +581,12 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+# decode_capture_planar's calls, on any device: a caller that holds a run's
+# kernel launches to its decodes (one gate_front launch a decode, and one
+# gate_stack launch a native one) reads it before and after the run.
+decodes = {"capture": 0}
+
+
 def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
                           device=None) -> Tuple[InventoryStats, DecodedEvents]:
     """Full pipeline from a planar (2, N) float32 ADC-rate capture
@@ -593,6 +599,7 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
     package's ``pallas_front`` path.  Runs on CUDA unless ``device`` says
     otherwise."""
     dev = resolve_device(device)
+    decodes["capture"] += 1
     x2 = torch.as_tensor(iq2, dtype=torch.float32).to(dev).contiguous()
     if cfg.cancel_cw:
         x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()

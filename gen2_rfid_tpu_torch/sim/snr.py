@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``gen2_rfid_tpu/sim/snr.py``: the same module but
 for ``snr_sweep``'s decode, which is the port's ``decode_capture`` on the
-device its ``device`` argument names (CUDA by default).
+device its ``device`` argument names (CUDA by default); ``waterfall_db``
+passes its keyword ``device`` on to it.
 
 The reference publishes no BER curves; its implicit bound is "the golden
 capture decodes" (README.md:43-53).  This utility quantifies the decoder's
@@ -100,15 +101,18 @@ def waterfall_db(
     n_rounds: int = 16,
     seed: int = 0,
     cfo_hz: float = 0.0,
+    *,
+    device=None,
 ) -> float:
     """SNR (dB) where the EPC decode rate crosses 0.5, by bisection.
 
     All probes reuse one trace structure (same seed -> same length -> one
-    jit compile); only the AWGN level changes.
+    jit compile); only the AWGN level changes.  Each probe decodes on
+    ``device`` (CUDA unless it says otherwise), as ``snr_sweep`` does.
     """
     def rate(s):
         return snr_sweep(cfg, [s], n_rounds=n_rounds, seed=seed,
-                         cfo_hz=cfo_hz)[0].epc_rate
+                         cfo_hz=cfo_hz, device=device)[0].epc_rate
 
     assert rate(hi_db) > 0.5 and rate(lo_db) < 0.5, "bracket the waterfall"
     while hi_db - lo_db > tol_db:

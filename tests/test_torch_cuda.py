@@ -23,6 +23,7 @@ from gen2_rfid_tpu_torch.kernels.gate_stack import (
     gate_stack_shape, segment_cases, segment_smem_bytes, stream_geometry)
 from gen2_rfid_tpu_torch.kernels.gate_stack import stream_cases as gate_stack_cases
 from gen2_rfid_tpu_torch.kernels.probe import probe, probe_plain
+from gen2_rfid_tpu_torch.tools.sweep import rows, run_twin, table_diff
 
 CFG = ReaderConfig()
 STACK_ARGS = (CFG.win_length, CFG.n_samples_pw // 2, CFG.n_samples_t1,
@@ -115,6 +116,30 @@ def test_gate_stack_kernel_matches_plain(cuda, n, run):
     torch.cuda.synchronize()
     assert kernels.launches["gate_stack"] == before + 1
     assert torch.equal(got, want)
+
+
+def test_kernels_count_bodies_and_keep_inputs(cuda):
+    """gate_stack counts each launch under the body that ran; while keeping,
+    gate_front and gate_stack keep one copy of their input a shape and
+    geometry, and nothing once stopped."""
+    kernels.reset_launches()
+    kernels.keep_inputs(True)
+    try:
+        y2 = torch.from_numpy(_noise(5000, 3)).to(cuda)
+        for _ in range(2):
+            gate_stack_flags(y2, *STACK_ARGS)
+        gate_stack_flags(y2, *SEGMENT_GEOS["miller2"])
+        gate_front(torch.from_numpy(_noise(1000, 4)).to(cuda), 5, 25, 100, 48)
+    finally:
+        kernels.keep_inputs(False)
+    gate_front(torch.from_numpy(_noise(2000, 5)).to(cuda), 5, 25, 100, 48)
+    torch.cuda.synchronize()
+    assert kernels.stack_bodies == {"stream": 2, "segment": 1}
+    assert kernels.launches["gate_stack"] == 3 and kernels.launches["gate_front"] == 2
+    assert sorted((k[0], k[1]) for k in kernels.kept) == [
+        ("gate_front", (2, 1000)), ("gate_stack", (2, 5000)), ("gate_stack", (2, 5000))]
+    for key, x in kernels.kept.items():
+        assert x.device.type == "cuda" and (key[0] != "gate_stack" or torch.equal(x, y2))
 
 
 def test_gate_stack_arithmetic_is_ieee(cuda):
@@ -605,3 +630,27 @@ def test_sharded_decode_on_card(cuda, mode):
     for f in st._fields:
         assert torch.equal(getattr(st, f).cpu(), getattr(st_c, f)), f
     assert int(st.n_epc_correct[0]) == tr.expected_epc_pass
+
+
+# One point of each envelope sweep: chip_smoke.py's rows, narrowed, and one
+# batch of the softfix campaign.
+SWEEP_POINTS = rows({
+    "snr": ["--snr", "10"], "sic": ["--trials", "4"], "sic_epc": ["--trials", "2"],
+    "classifier": ["--dphi-index", "2"],
+    "miller": ["--m", "8", "--blf-off", "0.04", "--interferer", "on", "--cfo", "on"],
+    "impair": ["--seeds", "1"], "ranging": ["--hops", "2", "--trials", "1"],
+}) + [("softfix", "softfix_false_accept", ["--frames", "4096", "--seed", "1"], 0)]
+
+
+@pytest.mark.parametrize("label,twin,argv,digits", SWEEP_POINTS,
+                         ids=[p[0] for p in SWEEP_POINTS])
+def test_sweep_point_on_card(cuda, label, twin, argv, digits):
+    """One point of each envelope sweep's twin on the card prints the table
+    of its CPU run (integer outcomes equal; ranging's cm to one unit of the
+    last digit)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        tables = {dev: run_twin(twin, argv, dev)[0] for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert tables["cuda"] and table_diff(tables["cuda"], tables["cpu"], digits) == []

@@ -186,6 +186,30 @@ def test_cpu_tensors_count_no_launches(golden_y2):
                                 "probe": 0}
 
 
+def test_keeping_inputs_on_the_cpu_keeps_and_counts_nothing(golden_y2):
+    """CPU tensors take the plain versions: no body counted, no input kept;
+    ``keep`` itself keeps one copy a key, and only while on."""
+    kernels.reset_launches()
+    kernels.keep_inputs(True)
+    try:
+        gate_front(torch.zeros((2, 1000)), 5, 25, 100, 48)
+        gate_stack_flags(golden_y2[:, :5000].contiguous(), *STACK_ARGS)
+        assert kernels.kept == {} and kernels.stack_bodies == {"stream": 0, "segment": 0}
+        x = torch.arange(6.0).reshape(2, 3)
+        kernels.keep("k", x, (1,))
+        kernels.keep("k", torch.zeros(2, 3), (1,))
+        kernels.keep("k", x, (2,))
+        x += 1
+    finally:
+        kernels.keep_inputs(False)
+    kernels.keep("k", x, (3,))
+    assert list(kernels.kept) == [("k", (2, 3), 1), ("k", (2, 3), 2)]
+    assert torch.equal(kernels.kept[("k", (2, 3), 1)], torch.arange(6.0).reshape(2, 3))
+    kernels.stack_bodies["stream"] = 5
+    kernels.reset_launches()
+    assert kernels.stack_bodies == {"stream": 0, "segment": 0}
+
+
 def test_wrappers_reject_other_devices_and_shapes():
     meta = torch.empty((2, 100), device="meta")
     with pytest.raises(ValueError):
