@@ -153,7 +153,19 @@ then:
     failing exactly its four M=2 + interferer cells, every decode through
     exactly one gate_front and one gate_stack launch, both kernels then
     bit-equal to their plain versions on every input shape the rows
-    launched them on, each sweep's wall time printed.
+    launched them on, each sweep's wall time printed;
+20. the bench twins (``gen2_rfid_tpu_torch/tools/bench*.py``) at full size,
+    a few timed decodes each: the flagship (640 EPCs a decode at N =
+    9,704,304), each of the eight configuration cases through its own
+    ``main`` (multitag_q4 152, miller4 480, miller2 400, miller8_trext 120,
+    blf640 260, blf160 400, wideband8 54 + 54, longcap 2,560) and the
+    scaling harness at 8 positions of the card (320 at n_time 1 and 8);
+    every line printed, naming the card and its power limit, every decode
+    through exactly one gate_front and (native single-channel) one
+    gate_stack launch, one of each a channel in wideband8 and a position in
+    the sharded decode; both kernels bit-equal to their plain versions on
+    every input each run launched them on, multitag_q4's and blf160's
+    among them.
 
 Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
 shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
@@ -162,8 +174,8 @@ in portal24 under ``launches_live`` and their live shapes' rows under
 ``live_shapes``, in the bench n_time 8 sharded decode under
 ``launches_sharded`` and their times at its shard shape under
 ``sharded_shape``, and their launches in phase 19's decodes under
-``launches_sweeps`` (gate_stack's stream kernel there, its segment kernel
-under ``gate_stack_segment``);
+``launches_sweeps`` and in phase 20's under ``launches_bench`` (gate_stack's
+stream kernel there, its segment kernel under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
 limit, and last
@@ -545,34 +557,6 @@ def phase_miller(dev, both, fmt, flush, path_run):
     return shapes
 
 
-def wideband_capture():
-    """bench_configs.py::case_wideband8's capture: 16 Msps, tag 27 on channel
-    1 and tag 99 on channel 6, 6 rounds each, tiled to about 8 M samples.
-    Returns (complex64 capture, {channel: (tag, expected EPCs)})."""
-    import numpy as np
-
-    from gen2_rfid_tpu_torch.config import ReaderConfig
-    from gen2_rfid_tpu_torch.sim.tag import Tag
-    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
-
-    synth = ReaderConfig(adc_rate=16e6)
-    tr_a = synthesize_inventory(synth, [Tag.with_id(27, seed=7)], n_rounds=6, seed=3, noise=0.0)
-    tr_b = synthesize_inventory(synth, [Tag.with_id(99, seed=9)], n_rounds=6, seed=4, noise=0.0)
-    n1 = max(tr_a.iq.size, tr_b.iq.size)
-
-    def place(iq, k):
-        pad = np.zeros(n1, np.complex64)
-        pad[: iq.size] = iq
-        return pad * np.exp(2j * np.pi * k * np.arange(n1) / 8).astype(np.complex64)
-
-    rng = np.random.default_rng(5)
-    wide = place(tr_a.iq, 1) + place(tr_b.iq, 6)
-    wide += (rng.normal(0, 0.002, n1) + 1j * rng.normal(0, 0.002, n1)).astype(np.complex64)
-    reps = max(1, int(8e6 // n1))
-    return (np.concatenate([wide] * reps),
-            {1: (27, tr_a.expected_epc_pass * reps), 6: (99, tr_b.expected_epc_pass * reps)})
-
-
 def phase_wideband(dev, both, fmt):
     """Phase 11: the channelizer on the card against the CPU, the
     per-channel decode's counts, the flat multi-channel decode against the
@@ -587,9 +571,10 @@ def phase_wideband(dev, both, fmt):
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg
     from gen2_rfid_tpu_torch.runtime.inventory import (
         decode_events, decode_events_multi, replay_inventory_batch, to_planar)
+    from gen2_rfid_tpu_torch.tools.bench_configs import CASES
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
-    wide, occupied = wideband_capture()
+    wide, occupied = CASES["wideband8"].capture()
     x2_cpu = to_planar(wide)
     x2 = x2_cpu.to(dev)
     n_chan = 8
@@ -1002,6 +987,7 @@ def phase_cli(dev, iq_b, tr_g):
     from gen2_rfid_tpu_torch.io.tracefile import read_trace, write_trace
     from gen2_rfid_tpu_torch.native import NativeEngine
     from gen2_rfid_tpu_torch.runtime.inventory import to_planar
+    from gen2_rfid_tpu_torch.tools.bench_configs import CASES
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
@@ -1112,7 +1098,7 @@ def phase_cli(dev, iq_b, tr_g):
         sic.unlink()
 
         # wideband8 under --wideband 8: phase 11's per-channel counts.
-        wide, occupied = wideband_capture()
+        wide, occupied = CASES["wideband8"].capture()
         wb = CLI_DIR / "wideband8.bin"
         write_trace(str(wb), wide)
         argv = ["decode", wb, "--wideband", "8"]
@@ -1470,6 +1456,7 @@ def phase_sharded(dev, iq_b, both, fmt):
     from gen2_rfid_tpu_torch.shard.mesh import make_mesh
     from gen2_rfid_tpu_torch.sim.tag import Tag
     from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+    from gen2_rfid_tpu_torch.tools.bench_configs import CASES
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
     def padded(iq, mult):
@@ -1541,7 +1528,7 @@ def phase_sharded(dev, iq_b, both, fmt):
             f"{t8:.3f} ms ({t8 / t1:.2f}x)")
 
     # wideband8 on a 2 time x 2 chan mesh of the card.
-    wide, occupied = wideband_capture()
+    wide, occupied = CASES["wideband8"].capture()
     cfg_w = ReaderConfig(max_events=256)
     mesh_w = make_mesh(2, 2, devices=[dev] * 4)
     kernels.reset_launches()
@@ -1742,6 +1729,114 @@ def phase_sweeps(dev):
           "exactly the four M=2 + interferer cells")
     return {"gate_front": launches["gate_front"], "stream": bodies["stream"],
             "segment": bodies["segment"]}
+
+
+# Phase 20: the bench twins (gen2_rfid_tpu_torch/tools/bench*.py) at full
+# size.  Each line's EPCs a decode (the JAX scripts' captures, counted on the
+# CPU), and the gate_stack body each single-channel case runs.
+BENCH_DECODES = 5
+BENCH_N = 9_704_304
+BENCH_EPCS = {"iq_decode_throughput": 640, "multitag_q4": 152, "miller4": 480,
+              "miller2": 400, "miller8_trext": 120, "blf640": 260, "blf160": 400,
+              "wideband8": 108, "longcap": 2560}
+BENCH_SEGMENT = ("miller4", "miller2", "miller8_trext", "blf640", "blf160")
+# bench_scaling under --positions 8: 40 rounds tiled 8 times.
+SCALING_POSITIONS, SCALING_EPCS = 8, 320
+
+
+def bench_run(twin, argv):
+    """A bench twin's ``main(argv)`` on the card, the counts set to 0 just
+    before it and read just after, keeping the kernels' inputs: (its JSON
+    lines, the launches of all its decodes, the first decode included)."""
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.tools.sweep import run_twin
+
+    kernels.reset_launches()
+    kernels.keep_inputs(True)
+    try:
+        lines, seconds = run_twin(twin, list(argv) + ["--decodes", str(BENCH_DECODES)], "cuda")
+    finally:
+        kernels.keep_inputs(False)
+    got = {"gate_front": kernels.launches["gate_front"], "stream": kernels.stack_bodies["stream"],
+           "segment": kernels.stack_bodies["segment"], "gate_scan": kernels.launches["gate_scan"]}
+    log(f"[bench] {twin} {' '.join(argv)}: {seconds:.3f} s wall, launches {got}")
+    for line in lines:
+        log(f"[bench line] {line}")
+    return [json.loads(line) for line in lines], got
+
+
+def phase_bench(dev):
+    """Phase 20: the three bench twins' ``main``s at full size on the card,
+    ``BENCH_DECODES`` timed decodes each: the flagship, each of the eight
+    cases (one ``main`` a case), and the scaling harness at 8 positions.
+    Each line names the card and its power limit and reads its EPCs on every
+    decode; every decode launches exactly one gate_front and, native
+    single-channel, one gate_stack (wideband8: one of each a channel; the
+    sharded decode one of each a position); both kernels are then bit-equal
+    to their plain versions on every input each run launched them on,
+    multitag_q4's and blf160's among them.  Returns the launches: gate_front's,
+    and gate_stack's by kernel body."""
+    import torch
+
+    from gen2_rfid_tpu_torch.tools.bench_configs import CASES
+
+    name, total = torch.cuda.get_device_name(0), {"gate_front": 0, "stream": 0, "segment": 0}
+    runs = [("bench", [], "iq_decode_throughput")]
+    runs += [("bench_configs", ["--configs", case], case) for case in CASES]
+    for twin, argv, label in runs:
+        lines, got = bench_run(twin, argv)
+        check(len(lines) == 1, f"{label}: {len(lines)} lines")
+        line = lines[0]
+        check(line["device"] == name and line["power_limit_w"] is not None,
+              f"{label}: device {line['device']}, power limit {line['power_limit_w']}")
+        check(line["epcs"] == BENCH_EPCS[label] and line["decodes"] == BENCH_DECODES,
+              f"{label}: {line['epcs']} EPCs a decode, expected {BENCH_EPCS[label]}")
+        n_chan = 8 if label == "wideband8" else 1
+        body = "segment" if label in BENCH_SEGMENT else "stream"
+        want = {"gate_front": n_chan, "gate_stack_stream": n_chan * (body == "stream"),
+                "gate_stack_segment": n_chan * (body == "segment"), "gate_scan": 0}
+        check(line["launches"] == want, f"{label}: launches a decode {line['launches']}, "
+                                        f"expected {want}")
+        runs_n = BENCH_DECODES + 1
+        check(got == {"gate_front": runs_n * n_chan, body: runs_n * n_chan,
+                      ("segment" if body == "stream" else "stream"): 0, "gate_scan": 0},
+              f"{label}: {got} for {runs_n} decodes of {n_chan} channel(s)")
+        if label == "iq_decode_throughput":
+            check(line["samples_per_iter"] == BENCH_N, f"flagship N {line['samples_per_iter']}")
+        if label == "wideband8":
+            check(line["epcs_by_channel"] == [0, 54, 0, 0, 0, 0, 54, 0],
+                  f"wideband8 EPCs by channel {line['epcs_by_channel']}")
+        else:
+            log(f"[bench roles] {label}: {line['roles']}")
+        checked = kept_kernel_checks()
+        check({k for k, _ in checked} == {"gate_front", "gate_stack"},
+              f"{label}: kept inputs {checked}")
+        log(f"[bench kernels] {label}: gate_front and gate_stack bit-equal to their plain "
+            f"versions at the shapes it launched them on: {sorted(checked)}")
+        for k in total:
+            total[k] += got[k]
+
+    lines, got = bench_run("bench_scaling", ["--positions", str(SCALING_POSITIONS)])
+    check(len(lines) == 1, f"bench_scaling: {len(lines)} lines")
+    line = lines[0]
+    check(line["device"] == name and line["power_limit_w"] is not None
+          and (line["n_devices"], line["positions"]) == (1, SCALING_POSITIONS)
+          and line["epcs"] == SCALING_EPCS,
+          f"bench_scaling: {line['device']}, {line['n_devices']} devices, "
+          f"{line['positions']} positions, {line['epcs']} EPCs")
+    for key, n_time in (("1", 1), ("n", SCALING_POSITIONS)):
+        want = {"gate_front": n_time, "gate_stack_stream": n_time, "gate_stack_segment": 0,
+                "gate_scan": 0}
+        check(line["launches"][key] == want,
+              f"bench_scaling n_time={n_time}: {line['launches'][key]}, expected {want}")
+    runs_n = (BENCH_DECODES + 1) * (1 + SCALING_POSITIONS)
+    check(got == {"gate_front": runs_n, "stream": runs_n, "segment": 0, "gate_scan": 0},
+          f"bench_scaling: {got}")
+    checked = kept_kernel_checks()
+    log(f"[bench kernels] scaling: bit-equal at {sorted(checked)}")
+    for k in total:
+        total[k] += got[k]
+    return total
 
 
 def main() -> int:
@@ -2214,6 +2309,8 @@ def main() -> int:
     sharded_launches, shard_rows = phase_sharded(dev, iq_b, both, fmt)
     # ---- phase 19: the envelope sweeps ----
     sweep_launches = phase_sweeps(dev)
+    # ---- phase 20: the bench twins at full size ----
+    bench_launches = phase_bench(dev)
     segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
     segment_rows.update(high_rows)
     seg_main = segment_rows["miller4"]
@@ -2235,7 +2332,8 @@ def main() -> int:
          "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1],
          "launches_sharded": sharded_launches["gate_front"],
          "sharded_shape": shard_rows["gate_front"],
-         "launches_sweeps": sweep_launches["gate_front"]},
+         "launches_sweeps": sweep_launches["gate_front"],
+         "launches_bench": bench_launches["gate_front"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",
@@ -2247,7 +2345,8 @@ def main() -> int:
          "launches_live": live["gate_stack"][0], "live_shapes": live["gate_stack"][1],
          "launches_sharded": sharded_launches["gate_stack"],
          "sharded_shape": shard_rows["gate_stack"],
-         "launches_sweeps": sweep_launches["stream"]},
+         "launches_sweeps": sweep_launches["stream"],
+         "launches_bench": bench_launches["stream"]},
         # The segment kernel: gate_stack at every width but ReaderConfig's.
         # Its top-level times are miller4's; "shapes" holds each timed
         # shape; "launches" counts the phase 16 decodes', each shape's row
@@ -2260,7 +2359,8 @@ def main() -> int:
          "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"], "bound_ms": seg_main["bound_ms"],
          "bound_by": seg_main["bound_by"], "library_ms": None, "ms_read": seg_main["ms_read"],
          "plain_ms_read": seg_main["plain_ms_read"], "library_ms_read": None,
-         "shapes": segment_rows, "launches_sweeps": sweep_launches["segment"]},
+         "shapes": segment_rows, "launches_sweeps": sweep_launches["segment"],
+         "launches_bench": bench_launches["segment"]},
         {"name": "gate_scan", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_scan.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:366",

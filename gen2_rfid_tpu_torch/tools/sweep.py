@@ -79,7 +79,7 @@ def sweep_device(name: str) -> torch.device:
     float32); it raises when CUDA is asked for and there is none."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run the sweep on the CPU")
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev

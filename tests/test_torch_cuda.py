@@ -654,3 +654,33 @@ def test_sweep_point_on_card(cuda, label, twin, argv, digits):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     assert tables["cuda"] and table_diff(tables["cuda"], tables["cpu"], digits) == []
+
+
+# ---- the bench twins ---------------------------------------------------------------
+
+BENCH_NARROWED = [("bench", ["--rounds", "4", "--tiles", "2"]),
+                  ("bench_configs", ["--rounds", "2", "--tiles", "1"]),
+                  ("bench_scaling", ["--rounds", "4"]),
+                  ("bench_scaling", ["--positions", "4", "--rounds", "4"])]
+
+
+@pytest.mark.parametrize("twin,argv", BENCH_NARROWED,
+                         ids=["bench", "bench_configs", "bench_scaling", "bench_scaling_positions"])
+def test_bench_twin_on_card(cuda, twin, argv):
+    """Each bench twin's ``main``, narrowed, on the card: every decode reads
+    its capture's EPCs (a wrong count exits 1), the same EPCs as the CPU run
+    of the same main, and each line names the card and its power limit."""
+    import json
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        lines = {dev: [json.loads(line) for line in
+                       run_twin(twin, argv + ["--decodes", "2" if dev == "cuda" else "1"],
+                                dev)[0]] for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert len(lines["cuda"]) == len(lines["cpu"]) == (8 if twin == "bench_configs" else 1)
+    for got, want in zip(lines["cuda"], lines["cpu"]):
+        assert got["metric"] == want["metric"] and got["epcs"] == want["epcs"] > 0
+        assert got["device"] == torch.cuda.get_device_name(0) and want["device"] == "cpu"
+        assert got["power_limit_w"] is not None and got["decodes"] == 2

@@ -39,6 +39,20 @@ def test_no_jax_import_in_source(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+# The root scripts the bench twins (gen2_rfid_tpu_torch/tools/bench*.py) mirror.
+ROOT_BENCH = ("bench", "bench_configs", "bench_scaling")
+BENCH_TWINS = [f"gen2_rfid_tpu_torch/tools/{name}.py" for name in ROOT_BENCH]
+
+
+@pytest.mark.parametrize("rel", BENCH_TWINS)
+def test_bench_twins_import_no_root_script(rel):
+    """A twin imports its siblings relatively; an absolute ``bench*`` import
+    would be the root JAX script."""
+    assert rel in PORT_FILES
+    bad = [m for m in _imported_modules(REPO / rel) if m.split(".")[0] in ROOT_BENCH]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_forbidden_names_do_not_match_the_port():
     assert not _forbidden("gen2_rfid_tpu_torch.runtime.inventory")
     assert _forbidden("gen2_rfid_tpu.runtime") and _forbidden("jax.numpy")
