@@ -9,10 +9,12 @@ then:
 0. holds the probe kernel (``x * 2 + 1``) against its plain version, bit for
    bit, before anything else;
 1. holds each front kernel against its plain PyTorch version on the card:
-   gate_front bit for bit at the bench shape, on noise and at every ragged
-   end of its register blocking (ny % R = 1..R-1, ny < R, ny below the
-   halo) for three blockings, and on an input 4 bytes past a 16-byte
-   boundary; gate_stack's flags exactly equal on the bench y, noise, every
+   gate_front's full build bit for bit at the bench shape, on noise and at
+   every ragged end of its register blocking (ny % R = 1..R-1, ny < R, ny
+   below the halo) for three blockings, and on an input 4 bytes past a
+   16-byte boundary; its y build bit for bit against its plain version and
+   the full build's y at the same kinds of input (ny % 8 = 1..7, ny < 8)
+   and at eight other decimations and filter lengths; gate_stack's flags exactly equal on the bench y, noise, every
    input its CPU models are held to (``kernels/gate_stack.py::stream_cases``
    and ``segment_cases``: edge lengths, run and segment boundaries, ties,
    tiny and infinite samples; the Miller, blf640, 160 kHz, Tari 6.25 us,
@@ -25,7 +27,15 @@ then:
    equal a CPU run of the port on the same capture;
 3. decodes the bench-size capture (80 rounds x 8 tiles, 9.7 M samples,
    max_events=1536): 640 of 640 EPCs, with launch counts showing that the
-   decode went through both kernels; times it with CUDA events;
+   decode went through both kernels (gate_front's y build); times it with
+   CUDA events.  Every phase that counts launches also counts gate_front's
+   by build (``kernels.front_bodies``): native decodes, MRC, recovery, live
+   native windows, stream chunks and native shards take the y build,
+   compat mode and the exact gate the full build.  From phase 2 to phase 18
+   the kernels keep a copy of their first input at each shape and geometry
+   (``kernels.keep_inputs``), and after each phase gate_front's two builds
+   and gate_stack are held bit for bit against their plain versions on
+   every one of them (``hold_kept``); phases 19 and 20 do the same each;
 4. sweeps gate_front's tile (block_y outputs) and gate_stack's run (words a
    warp streams, at the bench and golden shapes) and prints the fastest,
    then times each kernel and its plain version at the bench shape, beside
@@ -34,7 +44,10 @@ then:
    loop bounds (ReaderConfig's widths compile as constants); gate_stack
    also with its data left in L2 (no flush); its segment kernel at the
    blf640 widths on a bench-size capture, checked there at every swept
-   segment, with its launch shape and a segment sweep.  Every
+   segment, with its launch shape and a segment sweep; gate_front's y build
+   at the bench shape (its tile swept) and the golden shape beside its
+   bound, its plain version and ``torch.nn.functional.conv1d`` with a ones
+   kernel (the library call that computes the same y).  Every
    kernel is timed under both flushes of ``utils/timing.py::cuda_ms``:
    written (L2 left full of dirty lines, the earlier yardstick) and read (L2
    left clean); the kernels line gives the written times in ``ms``,
@@ -65,8 +78,10 @@ then:
 10. Miller-M: at each of bench_configs.py's Miller geometries (miller4,
     miller2, miller8_trext, 6.5-8.4 M samples) gate_front bit for bit
     against its plain version; the full-size decode, 480 / 400 / 120 EPCs,
-    through one launch of each (gate_scan none), timed and profiled; both
-    kernels timed at each shape beside their bounds, gate_stack's segment
+    through one launch of each (gate_scan none), timed and profiled; the
+    kernels timed at each shape beside their bounds (gate_front's y build
+    beside its plain version and conv1d, its tile swept at miller4; the
+    full build beside its plain version), gate_stack's segment
     kernel checked at each swept segment, with its shape and the sweep
     (miller4 also its plain version); five small Miller
     captures and the pinned ``miller4_impaired`` SigMF fixture (5 queries,
@@ -111,8 +126,9 @@ then:
     tiled twice): gate_front at its fitted tile bit for bit, the decode
     through exactly one launch of each front kernel, every EPC of tag 27,
     equal to the CPU decode on every int/bool field, timed and profiled;
-    both kernels timed beside their bounds, the segment kernel with its
-    shape and sweep;
+    the kernels timed beside their bounds (gate_front's two builds with
+    their plain versions, the y build's tile swept, conv1d), the segment
+    kernel with its shape and sweep;
 17. the closed-loop live reader (``runtime/live.py::LiveReader``): portal24,
     tests/test_population.py's 24-tag session inventory (backlog Q, SIC,
     A/B targets, 40 round commands), with the JAX package's counts (277
@@ -123,9 +139,9 @@ then:
     SIC pair, the link ladder under a -20 dBc interferer and a TAM1 scene,
     each equal to the port's CPU run on every integer field of LiveStats;
     ``python -m gen2_rfid_tpu_torch.apps.reader live --rounds 3 --tags 27 9
-    --sic`` in a child process; both front kernels bit-equal to their
-    plain versions at every live shape of portal24 and the ladder, and
-    timed there beside their bounds;
+    --sic`` in a child process; both front kernels (gate_front's two
+    builds) bit-equal to their plain versions at every live shape of
+    portal24 and the ladder, and timed there beside their bounds;
 18. the time- and channel-sharded decode (``shard/``): the bench capture
     padded to a multiple of 8 x decim at n_time 1, 2 and 8 on positions of
     the card, longcap (the bench trace tiled 32 times, 38.8 M samples) and
@@ -133,8 +149,9 @@ then:
     of each front kernel, with each shard's gate count beside its table's
     capacity, stats in every field and owned trigger indices equal to the
     single decode, timed beside it and the bench n_time 8 decode profiled;
-    both front kernels bit-equal to their plain versions at a bench shard's
-    extended shape and timed there; wideband8 through
+    both front kernels (gate_front's two builds) bit-equal to their plain
+    versions on every block and timed at a bench shard's extended shape;
+    wideband8 through
     ``decode_wideband_sharded`` on a 2 time x 2 chan mesh (phase 11's
     counts, one gate_front and one gate_stack a time shard and channel);
     the bench capture as a file through ``shard/launch.py::run_local``, two
@@ -165,17 +182,24 @@ then:
     gate_stack launch, one of each a channel in wideband8 and a position in
     the sharded decode; both kernels bit-equal to their plain versions on
     every input each run launched them on, multitag_q4's and blf160's
-    among them.
+    among them; gate_front's y build timed on blf640's and blf160's.
 
-Prints a ``{"kernels": [...]}`` line (gate_front's entry carries its Miller
-shapes under ``miller``, its mrc4 and sic2 recovery launches; gate_front's
-and gate_stack's their launches in the CLI's decode under ``launches_cli``,
-in portal24 under ``launches_live`` and their live shapes' rows under
+Prints a ``{"kernels": [...]}`` line: ``gate_front`` is the full build
+(its launches the compat bench decode's and, under ``launches_exact``, the
+exact gate's; its Miller, 8 / 16 Msps, live and shard shapes with their
+times), ``gate_front_y`` the y build (its launches the native bench
+decode's; every native shape's row under ``shapes``; its launches in mrc4,
+sic2's recovery, the CLI's decode, portal24, the bench n_time 8 sharded
+decode and phases 19 and 20; its live shapes' rows, each with its time at
+the fitting tile and at one tile an SM under ``tiles``, and the same at
+the stream's chunk shapes under ``stream_tiles``); gate_stack's entry
+carries its launches in the CLI's decode under ``launches_cli``, in
+portal24 under ``launches_live`` and its live shapes' rows under
 ``live_shapes``, in the bench n_time 8 sharded decode under
-``launches_sharded`` and their times at its shard shape under
-``sharded_shape``, and their launches in phase 19's decodes under
-``launches_sweeps`` and in phase 20's under ``launches_bench`` (gate_stack's
-stream kernel there, its segment kernel under ``gate_stack_segment``);
+``launches_sharded`` and its time at its shard shape under
+``sharded_shape``, and its launches in phase 19's decodes under
+``launches_sweeps`` and in phase 20's under ``launches_bench`` (the
+stream kernel there, the segment kernel under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
 limit, and last
@@ -262,7 +286,7 @@ def stage_breakdown(x2, cfg, reps=5, label="stages"):
     import torch
 
     from gen2_rfid_tpu_torch.dsp.gate import gate_detect
-    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_y_for_cfg
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg
     from gen2_rfid_tpu_torch.runtime.inventory import decode_events, replay_inventory
 
@@ -276,7 +300,7 @@ def stage_breakdown(x2, cfg, reps=5, label="stages"):
             out[name] = (time.perf_counter() - t0) * 1e3
             return r
 
-        y2 = stage("gate_front", lambda: gate_front_for_cfg(x2, cfg)[0])
+        y2 = stage("gate_front_y", lambda: gate_front_y_for_cfg(x2, cfg))
         y = torch.complex(y2[0], y2[1])
         flags = stage("gate_stack", lambda: gate_stack_for_cfg(y2, cfg))
         ev = stage("gate_detect", lambda: gate_detect(y, cfg, flags))
@@ -333,6 +357,113 @@ def front_bound(n, ny, taps, win, dcw):
     floats); float operations per output (taps, |y|, the window sums)."""
     return bound(4 * (2 * n) + 4 * (6 * ny),
                  ny * (2 * taps + 3 + 1 + (win - 1) + 2 * (dcw - 1)))
+
+
+def front_y_bound(n, ny, taps):
+    """gate_front's y build's least time: (2, N) in, y2 (2, Ny) out; 2T adds
+    an output."""
+    return bound(4 * (2 * n) + 4 * (2 * ny), ny * 2 * taps)
+
+
+def launch_counts():
+    """The kernels' launch counts, gate_front's also by build: ``front_y``
+    (y alone) and ``front_full`` (y, |y| and both windowed sums)."""
+    from gen2_rfid_tpu_torch import kernels
+
+    return {**kernels.launches, **{f"front_{k}": v for k, v in kernels.front_bodies.items()}}
+
+
+def counts_of(gate_front=0, gate_stack=0, gate_scan=0, probe=0, build="y"):
+    """The ``launch_counts()`` of a run whose gate_front launches are all of
+    one build."""
+    return {"gate_front": gate_front, "gate_stack": gate_stack, "gate_scan": gate_scan,
+            "probe": probe, "front_full": gate_front * (build == "full"),
+            "front_y": gate_front * (build == "y")}
+
+
+# gate_front's y build: the tiles swept at the shapes that pass ``sweep``
+# to y_report (those whose two slabs fit a block's shared memory).
+Y_TILES = (256, 512, 1024, 2048, 4096)
+
+
+def y_report(label, x2, geo, both, fmt, full_y=None, reps=20, plain=True, sweep=None):
+    """gate_front's y build at one shape: bit-equal to its plain version and
+    to the full build's y (``full_y``, or a launch of the full build), timed
+    under both flushes beside its bound, its plain version and the library
+    call that computes the same y in another order
+    (``torch.nn.functional.conv1d`` with a ones kernel, stride decim, TF32
+    off); with ``sweep`` (the flush buffer), its tile swept under the read
+    flush.  Returns the row for the kernels line."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.gate_front import (
+        SMEM_LIMIT, _lib, gate_front, gate_front_y, gate_front_y_plain, y_block_y)
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    decim, taps = geo[:2]
+    n = x2.shape[1]
+    got = gate_front_y(x2, decim, taps)
+    want = gate_front_y_plain(x2, decim, taps)
+    if full_y is None:
+        full_y = gate_front(x2, *geo)[0]
+    ones = torch.ones((1, 1, taps), dtype=torch.float32, device=x2.device)
+
+    def library():
+        return torch.nn.functional.conv1d(x2[:, None, :], ones, stride=decim,
+                                          padding=taps - 1)
+
+    lib_y = library()[:, 0, :got.shape[1]]
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{label}: gate_front_y is not bit-equal to its plain version")
+    check(torch.equal(got, full_y), f"{label}: gate_front_y is not bit-equal to the full "
+                                    f"build's y")
+    ny = got.shape[1]
+    lib_err = float((lib_y - got).abs().max() / got.abs().max()) if ny else 0.0
+    t = both(lambda: gate_front_y(x2, decim, taps), reps)
+    lt = both(library, reps)
+    b, by = front_y_bound(n, ny, taps)
+    row = {"n": n, "ny": ny, "decim": decim, "taps": taps,
+           "block_y": y_block_y(decim, taps, ny, x2.device),
+           "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
+           "share_read": b / t["read"], "library_ms": lt["write"],
+           "library_ms_read": lt["read"], "conv1d_max_rel_diff": lib_err}
+    text = ""
+    if plain:
+        pt = both(lambda: gate_front_y_plain(x2, decim, taps), 3)
+        row.update(plain_ms=pt["write"], plain_ms_read=pt["read"])
+        text = f", plain {fmt(pt)}"
+    if sweep is not None:
+        tiles = [b for b in Y_TILES if _lib().gate_front_y_smem_bytes(decim, taps, b) <= SMEM_LIMIT]
+        for tile in tiles:
+            check(torch.equal(gate_front_y(x2, decim, taps, block_y=tile), want),
+                  f"{label}: gate_front_y at block_y={tile} is not bit-equal to its plain version")
+        row["sweep_read"] = {
+            str(tile): cuda_ms(lambda tile=tile: gate_front_y(x2, decim, taps, block_y=tile),
+                               reps, sweep, flush_by="read") for tile in tiles}
+        text += "; tile sweep (read) " + ", ".join(f"{k}: {v:.4f}"
+                                                  for k, v in row["sweep_read"].items())
+    log(f"[time] {label} gate_front_y N={n} Ny={ny} (decim {decim}, taps {taps}, block_y "
+        f"{row['block_y']}): {fmt(t)}, bound {b:.6f} ms ({by}), {100 * b / t['read']:.1f}% of "
+        f"the read time{text}; conv1d {fmt(lt)} (max |conv1d - y| / max |y| = {lib_err:.3g}); "
+        f"bit-equal to plain and to the full build's y")
+    return row
+
+
+def full_row(label, x2, geo, both, fmt, reps=20):
+    """gate_front's full build (compat mode and the exact gate) at one shape:
+    its time under both flushes beside its bound and its plain version's.
+    Returns the row for the kernels line."""
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front, gate_front_plain
+
+    n, ny = x2.shape[1], x2.shape[1] // geo[0]
+    t = both(lambda: gate_front(x2, *geo), reps)
+    pt = both(lambda: gate_front_plain(x2, *geo), 3)
+    b, by = front_bound(n, ny, *geo[1:])
+    log(f"[time] {label} gate_front full build N={n} (decim, taps, win, dc) {geo}: {fmt(t)}, "
+        f"bound {b:.4f} ms ({by}), {100 * b / t['read']:.1f}% of the read time; plain "
+        f"{fmt(pt)}")
+    return {"n": n, "ny": ny, "ms": t["write"], "ms_read": t["read"], "bound_ms": b,
+            "bound_by": by, "plain_ms": pt["write"], "plain_ms_read": pt["read"]}
 
 
 def stack_bound(ny, win):
@@ -400,12 +531,14 @@ HIGH_RATES = (
 
 def phase_high_rates(dev, both, fmt, flush, path_run, tiles=2):
     """Phase 16: FM0 captures at 8 and 16 Msps, decim 1 (W 2000 and 4000),
-    decoded on the card through exactly one launch of each front kernel,
-    every EPC read and equal to the CPU decode, timed and profiled;
-    gate_front at its fitted tile bit-equal to its plain version; both
-    kernels timed beside their bounds, gate_stack's segment kernel with its
-    shape and sweep.  Returns {name: segment kernel row} and the gate_stack
-    launches of the decodes."""
+    decoded on the card through exactly one launch of each front kernel
+    (gate_front's y build), every EPC read and equal to the CPU decode,
+    timed and profiled; gate_front's full build at its fitted tile
+    bit-equal to its plain version and its y build to both; the kernels
+    timed beside their bounds (the full build beside its plain version too),
+    gate_stack's segment kernel with its shape and sweep.  Returns
+    {"segment": {name: row}, "y": {name: row}, "full": {name: row}} and the
+    gate_stack launches of the decodes."""
     import numpy as np
     import torch
 
@@ -418,7 +551,7 @@ def phase_high_rates(dev, both, fmt, flush, path_run, tiles=2):
     from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
-    rows, launches = {}, 0
+    rows, launches = {"segment": {}, "y": {}, "full": {}}, 0
     for name, kw, rounds in HIGH_RATES:
         c = ReaderConfig(**kw)
         tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=rounds, seed=2)
@@ -447,12 +580,11 @@ def phase_high_rates(dev, both, fmt, flush, path_run, tiles=2):
             f"{want_epc} / {want_epc} EPCs of tag 27")
         device_profile(lambda: decode_capture_planar(x2, c), reps=2, top=6,
                        label=f"profile {name}")
-        front_t = both(lambda: gate_front(x2, *geo_f), 20)
-        fb, fby = front_bound(n, ny, *geo_f[1:])
-        log(f"[time] {name} gate_front {fmt(front_t)}, bound {fb:.4f} ms ({fby}), "
-            f"{100 * fb / front_t['read']:.1f}% of the read time")
-        rows[name] = dict(segment_report(name, y2, geo_s, both, fmt, flush),
-                          launches=counts["gate_stack"])
+        rows["y"][name] = dict(y_report(name, x2, geo_f, both, fmt, full_y=y2, sweep=flush),
+                               launches=counts["front_y"])
+        rows["full"][name] = full_row(name, x2, geo_f, both, fmt)
+        rows["segment"][name] = dict(segment_report(name, y2, geo_s, both, fmt, flush),
+                                     launches=counts["gate_stack"])
         del x2, y2, got
     return rows, launches
 
@@ -476,10 +608,12 @@ MILLER_SMALL = (
 
 def phase_miller(dev, both, fmt, flush, path_run):
     """Phase 10: the two kernels at each Miller bench geometry against their
-    plain versions; the full-size decodes through them, timed and profiled;
+    plain versions (gate_front's y build also against the full build's y);
+    the full-size decodes through them (the y build), timed and profiled;
     small captures and the pinned SigMF fixture, CUDA against CPU.  Returns
-    {kernel: {capture: time and bound}} for the kernels line; gate_stack's
-    rows are the segment kernel's, with its shape and sweep."""
+    {kernel: {capture: time and bound}} for the kernels line: gate_front's
+    full build and its y build, and gate_stack's segment kernel with its
+    shape and sweep."""
     import numpy as np
     import torch
 
@@ -493,7 +627,7 @@ def phase_miller(dev, both, fmt, flush, path_run):
     from gen2_rfid_tpu_torch.tools.fixtures import fixture_specs
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
-    shapes = {"gate_front": {}, "gate_stack": {}}
+    shapes = {"gate_front": {}, "gate_front_y": {}, "gate_stack": {}}
     for name, kw, reps, want_n, want_epc in MILLER_BENCH:
         c = ReaderConfig(**kw)
         tr = synthesize_inventory(c, [Tag.with_id(27, seed=7)], n_rounds=20, seed=2)
@@ -523,13 +657,10 @@ def phase_miller(dev, both, fmt, flush, path_run):
         stage_breakdown(x2, c, label=f"stages {name}")
         device_profile(lambda: decode_capture_planar(x2, c), reps=2, top=8,
                        label=f"profile {name}")
-        front_t = both(lambda: gate_front(x2, *geo_f), 20)
-        fb, fby = front_bound(n, ny, *geo_f[1:])
-        front_bytes = (4 * (2 * n) + 4 * (6 * ny)) / HBM_BYTES_PER_S * 1e3
-        log(f"[time] {name} gate_front {fmt(front_t)}, bound {fb:.4f} ms ({fby}; "
-            f"{front_bytes:.4f} ms by its bytes alone)")
-        shapes["gate_front"][name] = {"launches": counts["gate_front"], "ms": front_t["write"],
-                                      "ms_read": front_t["read"], "bound_ms": fb, "bound_by": fby}
+        shapes["gate_front_y"][name] = dict(
+            y_report(name, x2, geo_f, both, fmt, full_y=y2, sweep=flush if name == "miller4"
+                     else None), launches=counts["front_y"])
+        shapes["gate_front"][name] = full_row(name, x2, geo_f, both, fmt)
         shapes["gate_stack"][name] = dict(
             segment_report(name, y2, geo_s, both, fmt, flush, plain=name == "miller4"),
             launches=counts["gate_stack"])
@@ -567,7 +698,7 @@ def phase_wideband(dev, both, fmt):
     from gen2_rfid_tpu_torch.config import ReaderConfig
     from gen2_rfid_tpu_torch.dsp.channelizer import channelize_planar, decode_wideband_planar
     from gen2_rfid_tpu_torch.dsp.gate import GateEvents, gate_detect
-    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_y_for_cfg
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg
     from gen2_rfid_tpu_torch.runtime.inventory import (
         decode_events, decode_events_multi, replay_inventory_batch, to_planar)
@@ -588,10 +719,10 @@ def phase_wideband(dev, both, fmt):
     kernels.reset_launches()
     res = decode_wideband_planar(x2, n_chan, cfg)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     log(f"[wideband] launches {got}")
-    check(got["gate_front"] == n_chan and got["gate_stack"] == n_chan and not got["gate_scan"],
-          "wideband decode: one gate_front and one gate_stack a channel, no gate_scan")
+    check(got == counts_of(n_chan, n_chan),
+          "wideband decode: one gate_front (y build) and one gate_stack a channel, no gate_scan")
     for k in range(n_chan):
         tag, want = occupied.get(k, (0, 0))
         n_ok = int(res[k][0].n_epc_correct)
@@ -600,7 +731,7 @@ def phase_wideband(dev, both, fmt):
               f"wideband channel {k}: {n_ok} EPCs, expected {want}")
     ys, evs = [], []
     for k in range(n_chan):
-        y2 = gate_front_for_cfg(ch[k], cfg)[0]
+        y2 = gate_front_y_for_cfg(ch[k], cfg)
         y = torch.complex(y2[0], y2[1])
         ys.append(y)
         evs.append(gate_detect(y, cfg, gate_stack_for_cfg(y2, cfg)))
@@ -631,11 +762,14 @@ def phase_wideband(dev, both, fmt):
                    label="profile wideband")
 
 
-def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b):
+def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b, flush):
     """Phase 12: the golden trace streamed in 200,000-sample chunks equals the
     batch decode; the bench capture at the default chunk reads 640 / 640; a
     checkpoint saved mid-stream resumes in a fresh decoder; each chunk
-    launches gate_front and gate_stack once."""
+    launches gate_front (its y build) and gate_stack once.  The y build is
+    timed at each chunk shape, kept by ``kernels.keep_inputs`` (which main
+    has on through the phase), at the fitting tile and at one tile an SM.
+    Returns those rows."""
     import numpy as np
     import torch
 
@@ -647,10 +781,10 @@ def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b):
     kernels.reset_launches()
     st_s, total = sd.decode(iter(np.array_split(tr_g.iq, 7)))
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     log(f"[stream golden] {sd._chunk_no} chunks, launches {got}, tuple {golden_tuple(st_s)}")
-    check(got["gate_front"] == got["gate_stack"] == sd._chunk_no and not got["gate_scan"],
-          "stream: one gate_front and one gate_stack a chunk, no gate_scan")
+    check(got == counts_of(sd._chunk_no, sd._chunk_no),
+          "stream: one gate_front (y build) and one gate_stack a chunk, no gate_scan")
     check(total == tr_g.iq.size and golden_tuple(st_s) == GOLDEN,
           "stream: golden tuple not reproduced")
     for f in st_s._fields:
@@ -675,11 +809,19 @@ def phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b):
     ckpt.unlink()
     log(f"[stream bench] 640 / 640 EPCs at the default chunk; resumed from a mid-stream "
         f"checkpoint to equal stats")
+    chunks = {}
+    for key, x in list(kernels.kept.items()):
+        if key[0] == "gate_front" and key[2] == "y":
+            chunks.setdefault((key[1], key[3], key[4]), x)
+    check(chunks, "stream: no chunk input of gate_front's y build was kept")
+    tiles = [tile_vs_spread(f"stream chunk N={shape[1]}", x, decim, taps, flush)
+             for (shape, decim, taps), x in sorted(chunks.items())]
     ms = cuda_ms(lambda: StreamDecoder(cfg_b).decode(iter([iq_b])), 3)
     log(f"[time] stream decode of the bench capture {ms:.3f} ms for {iq_b.size} samples "
         f"({iq_b.size / ms / 1e3:.1f} Msamples/s)")
     device_profile(lambda: StreamDecoder(cfg_b).decode(iter([iq_b])), reps=2, top=8,
                    label="profile stream")
+    return tiles
 
 
 # mrc4: tests/test_ranging.py::test_aoa_from_diversity_decode's array at full
@@ -744,7 +886,7 @@ def mrc_same_as_cpu(label, cuda_run, cpu_run):
 
 def phase_mrc(dev, rounds=80, tiles=8):
     """Phase 13, cell mrc4: the 4-antenna diversity decode at full size
-    through one gate_front launch a channel and no other kernel, its
+    through one gate_front launch (y build) a channel and no other kernel, its
     bearing, CUDA against CPU on a small two-channel scene, timed and
     profiled.  Returns the launch counts and the decode's ms."""
     import numpy as np
@@ -770,10 +912,10 @@ def phase_mrc(dev, rounds=80, tiles=8):
     kernels.reset_launches()
     st, dec, h = decode_capture_mrc_planar(x, cfg)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     log(f"[mrc4] launches {got}")
-    check(got == {"gate_front": n_chan, "gate_stack": 0, "gate_scan": 0, "probe": 0},
-          f"mrc4: {got}, expected one gate_front a channel and nothing else")
+    check(got == counts_of(n_chan),
+          f"mrc4: {got}, expected one gate_front (y build) a channel and nothing else")
     want = rounds * tiles
     check(int(st.n_epc_correct) == want and int(st.tag_reads[27]) == want
           and unique_tags(st) == 1,
@@ -824,7 +966,7 @@ def sic_scene(n_rounds):
 
 def phase_sic(dev, x2_bench, cfg_bench, tiles=8):
     """Phase 14, cell sic2: EPC-window SIC after the decode of the same-seed
-    scene at full size, through one gate_front launch; the JAX package's
+    scene at full size, through one gate_front launch (y build); the JAX package's
     counts, frames from the ground truth, nothing on the single-tag bench
     capture, the small scene CUDA against CPU; timed and profiled.  Returns
     the recovery's launch counts and its ms."""
@@ -852,12 +994,12 @@ def phase_sic(dev, x2_bench, cfg_bench, tiles=8):
     kernels.reset_launches()
     rec = recover_epc_collisions(x2, dec, cfg)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     extra = extra_tag_reads(rec)
     want = {t: c * tiles for t, c in SIC_EXTRA.items()}
     log(f"[sic2] recovery launches {got}; extra reads {extra} (expected {want})")
-    check(got == {"gate_front": 1, "gate_stack": 0, "gate_scan": 0, "probe": 0},
-          f"sic2 recovery: {got}, expected one gate_front launch and nothing else")
+    check(got == counts_of(1),
+          f"sic2 recovery: {got}, expected one gate_front launch (y build) and nothing else")
     check(extra == want, f"sic2: extra reads {extra}, expected {want}")
     check(all(tuple(int(b) for b in fr) in truth for _, _, fr in rec),
           "sic2: a recovered frame is not in the simulator's ground truth")
@@ -946,9 +1088,10 @@ def cli(argv, reps=1, timed_decode=False):
     return rc, text, med, dec_ms
 
 
-def cli_launches(argv, want, label):
+def cli_launches(argv, want, label, build="y"):
     """One CLI run with the counts set to 0 just before it and read just
-    after; fails unless they are ``want``.  (rc, output)"""
+    after; fails unless they are ``want``, every gate_front launch of
+    ``build``.  (counts, output)"""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
@@ -956,10 +1099,11 @@ def cli_launches(argv, want, label):
     kernels.reset_launches()
     rc, text, _, _ = cli(argv)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
+    want = counts_of(**want, build=build)
     log(f"[cli {label}] launches {got}")
     check(rc == 0, f"cli {label}: exit {rc}")
-    check(got == {**{k: 0 for k in got}, **want}, f"cli {label}: launches {got}, expected {want}")
+    check(got == want, f"cli {label}: launches {got}, expected {want}")
     return got, text
 
 
@@ -1056,7 +1200,8 @@ def phase_cli(dev, iq_b, tr_g):
         times["decode --report"] = (ms, dec_ms)
 
         exact_launches, text = cli_launches(argv_b + ["--exact-gate"],
-                                            {"gate_front": 1, "gate_scan": 1}, "bench --exact-gate")
+                                            {"gate_front": 1, "gate_scan": 1}, "bench --exact-gate",
+                                            build="full")
         check("| Correctly decoded EPC : 640" in text.splitlines(), "cli --exact-gate: not 640")
         _, _, ms, dec_ms = cli(argv_b + ["--exact-gate"], reps=3, timed_decode=True)
         times["decode --exact-gate"] = (ms, dec_ms)
@@ -1218,15 +1363,17 @@ def live_profile(label, rounds):
     return out
 
 
-def phase_live(dev, both, fmt):
+def phase_live(dev, both, fmt, flush):
     """Phase 17: the closed-loop live reader on the card.  portal24 with the
-    JAX package's counts, exactly one gate_front and one gate_stack launch a
-    window decode, its block shapes and slot latency, and a profile of its
-    first slots; three shorter scenes equal to the port's CPU runs; the
-    CLI's ``live`` in a child process; both front kernels bit-equal to
-    their plain versions at every live shape of portal24 and the ladder,
-    and timed there beside their bounds.  Returns {kernel: (launches,
-    shape rows)}."""
+    JAX package's counts, exactly one gate_front (y build) and one
+    gate_stack launch a window decode, its block shapes and slot latency,
+    and a profile of its first slots; three shorter scenes equal to the
+    port's CPU runs; the CLI's ``live`` in a child process and in this
+    one; both front
+    kernels (gate_front's two builds) bit-equal to their plain versions at
+    every live shape of portal24 and the ladder, and timed there beside
+    their bounds, the y build at the fitting tile and at one tile an SM too.
+    Returns {kernel: (launches, shape rows)}."""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
@@ -1246,7 +1393,7 @@ def phase_live(dev, both, fmt):
     st = reader.run_inventory(channel, n_rounds)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    portal_launches = got = dict(kernels.launches)
+    portal_launches = got = launch_counts()
     n_dec = len(decodes.calls)
     reads = {t: int(st.tag_reads[t]) for t in range(0x10, 0x10 + 24)}
     counts = {"n_queries": st.n_queries, "n_epc_correct": st.n_epc_correct,
@@ -1264,9 +1411,9 @@ def phase_live(dev, both, fmt):
         f"of slot time)")
     check(counts == PORTAL24, f"portal24: {counts}, the JAX package's are {PORTAL24}")
     check(set(reads.values()) == {4}, f"portal24: reads per tag {reads}, expected 4 each")
-    check(got == {"gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "probe": 0},
+    check(got == counts_of(n_dec, n_dec),
           f"portal24: launches {got} for {n_dec} window decodes, expected one "
-          f"gate_front and one gate_stack a decode")
+          f"gate_front (y build) and one gate_stack a decode")
     check(len(shapes) <= 5, f"portal24: {len(shapes)} block shapes, expected at most 5")
     profile = live_profile("profile portal24", PROFILE_ROUNDS)
 
@@ -1278,7 +1425,7 @@ def phase_live(dev, both, fmt):
         kernels.reset_launches()
         st = reader.run_inventory(channel, n_rounds)
         torch.cuda.synchronize()
-        got = dict(kernels.launches)
+        got = launch_counts()
         n_dec = len(log_s.calls)
         reader_c, channel_c, _ = build_scene(name, device="cpu")
         st_cpu = reader_c.run_inventory(channel_c, n_rounds)
@@ -1287,7 +1434,7 @@ def phase_live(dev, both, fmt):
             f"decodes, launches {got}; latency p50 {st.latency_summary()['p50_ms']:.3f} ms")
         check(a == b, f"live {name}: card != CPU on {[k for k in a if a[k] != b[k]]}")
         check(ok(st), f"live {name}: not its expected counts")
-        check(got["gate_front"] == n_dec == got["gate_stack"],
+        check(got == counts_of(n_dec, n_dec),
               f"live {name}: launches {got} for {n_dec} window decodes")
         log(f"[live {name}] card == CPU on every integer field of LiveStats")
         if name == "ladder":
@@ -1304,11 +1451,16 @@ def phase_live(dev, both, fmt):
         log(f"[cli python -m live] {line}")
     lines = out.stdout.splitlines()
     check(out.returncode == 0, f"python -m ... live: exit {out.returncode}")
+    # The same command in this process, so that the kernels are held at its
+    # windows' shapes too (main keeps their inputs through the phase).
+    rc, text, _, _ = cli(argv)
+    check(rc == 0, f"live in process: exit {rc}")
     for want in ("| Correctly decoded EPC : 3", "| Collided slots recovered via SIC: 3"):
         check(want in lines, f"python -m ... live: no line {want!r}")
+        check(want in text.splitlines(), f"live in process: no line {want!r}")
 
     # The kernels at every live shape: bit-equal, shaped and timed.
-    rows = {"gate_front": [], "gate_stack": []}
+    rows = {"gate_front": [], "gate_front_y": [], "gate_stack": []}
     for (cfg, n), (mode, block2) in sorted(blocks.items(),
                                            key=lambda kv: (kv[0][0].miller_m, kv[0][1])):
         x2 = torch.from_numpy(block2).to(dev)
@@ -1336,11 +1488,16 @@ def phase_live(dev, both, fmt):
         base = {"miller_m": cfg.miller_m, "mode": mode, "n": n, "ny": ny}
         rows["gate_front"].append({**base, "ms": tf["write"], "ms_read": tf["read"],
                                    "bound_ms": fb, "bound_by": fby})
+        rows["gate_front_y"].append({**base, **y_report(f"live {label}", x2, geo_f, both, fmt,
+                                                        full_y=y2, reps=50),
+                                     "tiles": tile_vs_spread(f"live {label}", x2,
+                                                             *geo_f[:2], flush)})
         rows["gate_stack"].append({**base, "ms": ts["write"], "ms_read": ts["read"],
                                    "bound_ms": sb, "bound_by": sby, "grid": shp["grid"],
                                    "run": shp["run"]})
     log(f"[live] profile {json.dumps(profile)}")
-    return {k: (portal_launches[k], v) for k, v in rows.items()}
+    keys = {"gate_front": "front_full", "gate_front_y": "front_y", "gate_stack": "gate_stack"}
+    return {k: (portal_launches[keys[k]], v) for k, v in rows.items()}
 
 
 # Phase 18's per-run table caps: the bench capture's 1,280 command events
@@ -1371,12 +1528,13 @@ def sharded_run(label, x2, cfg, n_time, eps, single, want_epc, dev):
     kernels.reset_launches()
     st, dec, gated = decoder(x2[None], with_gated=True)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     gated = gated[:, 0].tolist()
     log(f"[{label} n_time={n_time}] launches {got}; gate triggers a shard, halo included "
         f"{gated} against a table of {eps}; {int(st.n_epc_correct[0])} EPCs")
-    check(got == {"gate_front": n_time, "gate_stack": n_time, "gate_scan": 0, "probe": 0},
-          f"{label} n_time={n_time}: launches {got}, expected {n_time} of each front kernel")
+    check(got == counts_of(n_time, n_time),
+          f"{label} n_time={n_time}: launches {got}, expected {n_time} of each front kernel "
+          f"(gate_front's y build)")
     check(max(gated) <= eps, f"{label} n_time={n_time}: a shard gated {max(gated)} > {eps}")
     check(int(st.n_epc_correct[0]) == want_epc,
           f"{label} n_time={n_time}: {int(st.n_epc_correct[0])} EPCs, expected {want_epc}")
@@ -1396,12 +1554,15 @@ def block_kernel_checks(label, x2, cfg, n_time):
     """Both front kernels against their plain versions on every block a
     sharded decode of ``x2`` ((2, N), or (C, 2, N) with one block a channel)
     over n_time shards launches them on, cut as the decoder cuts them
-    (``extended_block``): gate_front bit for bit at the padded block
-    ``front_valid`` hands it, gate_stack's flags bit for bit at the case's
-    geometry on that block's y.  Returns the (N, Ny) checked."""
+    (``extended_block``): gate_front's full build bit for bit at the padded
+    block ``front_valid`` hands it, its y build at the same block
+    (``_fir_valid``'s) bit-equal to its plain version and to the full
+    build's y, gate_stack's flags bit for bit at the case's geometry on that
+    block's y.  Returns the (N, Ny) checked."""
     import torch
 
-    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_front import (
+        front_taps, gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg, gate_stack_plain
     from gen2_rfid_tpu_torch.shard.decode_sharded import _halo_x, extended_block, front_input
 
@@ -1414,6 +1575,7 @@ def block_kernel_checks(label, x2, cfg, n_time):
         for t in range(n_time):
             xp, k0, n_valid = front_input(extended_block(row, t, n_loc, halo), cfg)
             got_f, want_f = gate_front(xp, *geo_f), gate_front_plain(xp, *geo_f)
+            got_y = gate_front_y(xp, *geo_f[:2])
             y2 = got_f[0][:, k0:k0 + n_valid].contiguous()
             got_s = gate_stack_for_cfg(y2, cfg) if cfg.mode != "compat" else None
             want_s = gate_stack_plain(y2, *geo_s) if got_s is not None else None
@@ -1421,10 +1583,13 @@ def block_kernel_checks(label, x2, cfg, n_time):
             at = f"{label} n_time={n_time} channel {c} shard {t}: N={xp.shape[1]}"
             check(all(torch.equal(g, w) for g, w in zip(got_f, want_f)),
                   f"gate_front is not bit-equal to its plain version at {at}")
+            check(torch.equal(got_y, got_f[0]) and torch.equal(got_y, gate_front_y_plain(
+                xp, *geo_f[:2])), f"gate_front_y is not bit-equal to its plain version and "
+                                  f"the full build's y at {at}")
             check(got_s is None or torch.equal(got_s, want_s),
                   f"gate_stack flags differ from the plain version at {at}, Ny={n_valid}")
-    log(f"[sharded kernels] {label} n_time={n_time}: gate_front and gate_stack bit-equal "
-        f"to their plain versions on all {rows.shape[0] * n_time} blocks, N={xp.shape[1]} "
+    log(f"[sharded kernels] {label} n_time={n_time}: gate_front (both builds) and gate_stack "
+        f"bit-equal to their plain versions on all {rows.shape[0] * n_time} blocks, N={xp.shape[1]} "
         f"(halos {halo[0]} + {halo[1]}, padded as front_valid pads), Ny={n_valid}")
     return xp.shape[1], n_valid
 
@@ -1436,8 +1601,8 @@ def phase_sharded(dev, iq_b, both, fmt):
     kernel, timed beside it; both kernels bit-equal to their plain versions
     at a bench shard's extended shape and timed there; wideband8 through
     ``decode_wideband_sharded`` on a 2 x 2 mesh; the bench capture as a file
-    through two CUDA worker processes of four shards each; the dry run on 8
-    positions.  Returns the bench n_time 8 launches and the shard-shape
+    through two CUDA worker processes of four shards each, and its eight
+    blocks in this process; the dry run on 8 positions.  Returns the bench n_time 8 launches and the shard-shape
     kernel rows."""
     import numpy as np
     import torch
@@ -1452,6 +1617,7 @@ def phase_sharded(dev, iq_b, both, fmt):
     from gen2_rfid_tpu_torch.runtime.stats import unique_tags
     from gen2_rfid_tpu_torch.shard.decode_sharded import _halo_x, extended_block, front_input
     from gen2_rfid_tpu_torch.shard.dryrun import dryrun_multichip
+    from gen2_rfid_tpu_torch.shard.distributed import decode_file_distributed
     from gen2_rfid_tpu_torch.shard.launch import run_local
     from gen2_rfid_tpu_torch.shard.mesh import make_mesh
     from gen2_rfid_tpu_torch.sim.tag import Tag
@@ -1479,7 +1645,7 @@ def phase_sharded(dev, iq_b, both, fmt):
     device_profile(lambda: decoder_8(x2_b[None]), top=8, label="profile sharded bench n_time=8")
 
     # Both front kernels timed at one bench shard's block (shard 3 of 8), as
-    # front_valid hands it to gate_front.
+    # front_valid and _fir_valid hand it to gate_front's builds.
     n_loc = x2_b.shape[1] // 8
     hl_x, hr_x = _halo_x(cfg_b, n_loc)
     x_ext, k0, n_valid = front_input(extended_block(x2_b, 3, n_loc, (hl_x, hr_x)), cfg_b)
@@ -1498,6 +1664,8 @@ def phase_sharded(dev, iq_b, both, fmt):
     shard_rows = {
         "gate_front": {"n": n_x, "ms": tf["write"], "ms_read": tf["read"], "bound_ms": fb,
                        "bound_by": fby},
+        "gate_front_y": y_report("bench shard 3 of 8", x_ext, geo_f, both, fmt,
+                                 full_y=got_f[0]),
         "gate_stack": {"ny": ny, "ms": ts["write"], "ms_read": ts["read"], "bound_ms": sb,
                        "bound_by": sby}}
     del got_f, x_ext, y2
@@ -1534,11 +1702,11 @@ def phase_sharded(dev, iq_b, both, fmt):
     kernels.reset_launches()
     st_w, _ = decode_wideband_sharded(wide, 8, cfg_w, mesh_w, events_per_shard=128)
     torch.cuda.synchronize()
-    got = dict(kernels.launches)
+    got = launch_counts()
     log(f"[wideband sharded] 2 time x 2 chan: launches {got}; EPCs a channel "
         f"{st_w.n_epc_correct.tolist()}")
-    check(got == {"gate_front": 16, "gate_stack": 16, "gate_scan": 0, "probe": 0},
-          "wideband sharded: one gate_front and one gate_stack a (time shard, channel)")
+    check(got == counts_of(16, 16), "wideband sharded: one gate_front (y build) and one "
+                                     "gate_stack a (time shard, channel)")
     for k in range(8):
         tag, want = occupied.get(k, (0, 0))
         n_ok = int(st_w.n_epc_correct[k])
@@ -1578,6 +1746,15 @@ def phase_sharded(dev, iq_b, both, fmt):
         f"alone (interpreter, import torch and the package, CUDA context) {start_s:.2f} s")
     check({k: rec[k] for k in want_rec} == want_rec,
           f"distributed record {rec} != the single decode's {want_rec}")
+    # The workers' eight blocks, cut as they cut them, in one process here,
+    # so that the kernels are held at their shapes too (main keeps their
+    # inputs through the phase).
+    st_f, _ = decode_file_distributed(str(path), cfg_b, events_per_shard=256,
+                                      shards_per_process=2 * 4)
+    check(int(st_f.n_epc_correct) == rec["n_epc_correct"]
+          and int(st_f.n_queries) == rec["n_queries"],
+          f"the file decode of 8 shards in one process: {int(st_f.n_epc_correct)} EPCs, "
+          f"{int(st_f.n_queries)} queries; the workers' record {rec}")
     path.unlink()
 
     # The dry run on 8 positions of the card.
@@ -1606,35 +1783,100 @@ def sweep_tables(device: str):
 
     out = []
     for _, twin, argv, _ in rows():
-        d0, k0 = inventory.decodes["capture"], dict(kernels.launches)
+        d0, k0 = inventory.decodes["capture"], launch_counts()
         lines, seconds = run_twin(twin, argv, device)
+        k1 = launch_counts()
         out.append({"lines": lines, "s": seconds,
                     "decodes": inventory.decodes["capture"] - d0,
-                    "launches": {k: kernels.launches[k] - k0[k] for k in k0}})
+                    "launches": {k: k1[k] - k0[k] for k in k0}})
     return out
 
 
 def kept_kernel_checks():
-    """gate_front and gate_stack against their plain versions, bit for bit,
-    on every input the sweeps launched them on (one a shape and geometry,
-    kept by ``kernels.keep_inputs``).  Returns the (kernel, N) checked."""
+    """gate_front's two builds and gate_stack against their plain versions,
+    bit for bit, on every input a run launched them on (one a shape and
+    geometry, kept by ``kernels.keep_inputs``).  Returns the (kernel, N)
+    checked, gate_front's y build as ``gate_front_y``."""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
-    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.kernels.gate_front import (
+        gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
 
     checked = []
     for (name, shape, *geo), x in kernels.kept.items():
-        if name == "gate_front":
-            got = gate_front(x, *geo[:4], block_y=geo[4])
-            same = all(torch.equal(g, w) for g, w in zip(got, gate_front_plain(x, *geo[:4])))
+        if name == "gate_front" and geo[0] == "y":
+            name = "gate_front_y"
+            same = torch.equal(gate_front_y(x, *geo[1:3], block_y=geo[3]),
+                               gate_front_y_plain(x, *geo[1:3]))
+        elif name == "gate_front":
+            got = gate_front(x, *geo[1:5], block_y=geo[5])
+            same = all(torch.equal(g, w) for g, w in zip(got, gate_front_plain(x, *geo[1:5])))
         else:
             same = torch.equal(gate_stack_flags(x, *geo), gate_stack_plain(x, *geo[:4]))
-        check(same, f"{name} is not bit-equal to its plain version at the sweeps' "
+        check(same, f"{name} is not bit-equal to its plain version at the kept "
                     f"shape {shape}, geometry {tuple(geo)}")
         checked.append((name, shape[1]))
     return checked
+
+
+def hold_kept(label):
+    """Stop keeping, hold every input kept since ``keep_inputs(True)``
+    against its kernel's plain version (``kept_kernel_checks``), log the
+    shapes, and start keeping anew for what follows.  Returns the (kernel,
+    N) checked."""
+    from gen2_rfid_tpu_torch import kernels
+
+    kernels.keep_inputs(False)
+    checked = kept_kernel_checks()
+    by_kernel = {}
+    for k, n in checked:
+        by_kernel.setdefault(k, set()).add(n)
+    log(f"[kept kernels {label}] bit-equal to their plain versions on the "
+        f"{len(checked)} input shapes and geometries launched: " + "; ".join(
+            f"{k} {'Ny' if k == 'gate_stack' else 'N'} {sorted(ns)}"
+            for k, ns in sorted(by_kernel.items())))
+    kernels.keep_inputs(True)
+    return checked
+
+
+def spread_tile(ny, fitting):
+    """The tile of gate_front's y build that gives each SM one for Ny
+    outputs (a multiple of 8), at most the ``fitting`` one."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.gate_front import Y_GROUP
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return min(fitting, max(Y_GROUP, -(-ny // (sms * Y_GROUP)) * Y_GROUP))
+
+
+def tile_vs_spread(label, x2, decim, taps, flush, reps=50):
+    """gate_front_y at the fitting tile (``_fitting_y_tile``: the largest
+    whose slabs fit shared memory) and at one tile an SM (``spread_tile``),
+    each bit-equal to its plain version and timed under the read flush.
+    Returns {"ny", "fitting", "spread", "fitting_ms", "spread_ms"}."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.gate_front import (
+        _fitting_y_tile, gate_front_y, gate_front_y_plain)
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    ny = x2.shape[1] // decim
+    fitting = _fitting_y_tile(decim, taps)
+    row = {"ny": ny, "fitting": fitting, "spread": spread_tile(ny, fitting)}
+    want = gate_front_y_plain(x2, decim, taps)
+    for key in ("fitting", "spread"):
+        tile = row[key]
+        check(torch.equal(gate_front_y(x2, decim, taps, block_y=tile), want),
+              f"{label}: gate_front_y at block_y={tile} is not bit-equal to its plain version")
+        row[f"{key}_ms"] = cuda_ms(lambda tile=tile: gate_front_y(x2, decim, taps, block_y=tile),
+                                   reps, flush, flush_by="read")
+    log(f"[y tile {label}] Ny={ny} (decim {decim}, taps {taps}): fitting tile {row['fitting']} "
+        f"{row['fitting_ms']:.4f} ms, one tile an SM {row['spread']} {row['spread_ms']:.4f} ms "
+        f"(read flush, median of {reps}); both bit-equal to plain")
+    return row
 
 
 def phase_sweeps(dev):
@@ -1643,10 +1885,10 @@ def phase_sweeps(dev):
     tool's counts.  One row of each other twin (``tools/sweep.py``'s
     ``ROWS``), its printed lines and its count of decodes equal to the port's
     CPU run of the same rows (a child process, run meanwhile), through
-    exactly one gate_front and one gate_stack launch a decode and none
-    elsewhere; then both kernels bit-equal to their plain versions on every
-    input shape the rows gave them.  Returns the launches: gate_front's, and
-    gate_stack's by kernel body."""
+    exactly one gate_front (y build) and one gate_stack launch a decode and
+    none elsewhere; then both kernels bit-equal to their plain versions on
+    every input shape the rows gave them.  Returns the launches: gate_front's,
+    its y build's, and gate_stack's by kernel body."""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
@@ -1680,6 +1922,7 @@ def phase_sweeps(dev):
         finally:
             kernels.keep_inputs(False)
         launches, bodies = dict(kernels.launches), dict(kernels.stack_bodies)
+        fronts = dict(kernels.front_bodies)
 
         out, err = child.communicate(timeout=900)
         check(child.returncode == 0, f"the sweeps' CPU run failed: {err[-2000:]}")
@@ -1698,26 +1941,28 @@ def phase_sweeps(dev):
         check(not bad, f"{label}: the card's table differs from the CPU's: {bad}")
         n = c["decodes"]
         check(n == h["decodes"], f"{label}: {n} decodes on the card, {h['decodes']} on the CPU")
-        check(c["launches"] == {"gate_front": n, "gate_stack": n, "gate_scan": 0, "probe": 0},
+        check(c["launches"] == counts_of(n, n),
               f"{label}: launches {c['launches']} for {n} native single-channel decodes, "
-              "expected one gate_front and one gate_stack launch a decode")
+              "expected one gate_front (y build) and one gate_stack launch a decode")
     n_dec = sum(c["decodes"] for c in card)
-    check(n_dec > 0 and launches["gate_front"] == n_dec
+    check(n_dec > 0 and launches["gate_front"] == n_dec and fronts == {"full": 0, "y": n_dec}
           and sum(bodies.values()) == launches["gate_stack"]
           and bodies["stream"] > 0 and bodies["segment"] > 0,
-          f"sweep launches {launches}, gate_stack by body {bodies}, for {n_dec} decodes")
+          f"sweep launches {launches}, gate_front by build {fronts}, gate_stack by body "
+          f"{bodies}, for {n_dec} decodes")
     log(f"[sweeps] every table and count of decodes equals the port's CPU run of the same "
-        f"rows; {n_dec} decodes, each one gate_front and one gate_stack launch "
+        f"rows; {n_dec} decodes, each one gate_front (y build) and one gate_stack launch "
         f"({bodies['stream']} stream, {bodies['segment']} segment kernel)")
 
     checked = kept_kernel_checks()
     torch.cuda.synchronize()
-    for name in ("gate_front", "gate_stack"):
+    check({k for k, _ in checked} == {"gate_front_y", "gate_stack"},
+          f"the sweeps kept inputs of {sorted({k for k, _ in checked})}")
+    for name in ("gate_front_y", "gate_stack"):
         ns = sorted({n for k, n in checked if k == name})
-        check(ns, f"the sweeps kept no input of {name}")
         log(f"[sweeps kernels] {name} bit-equal to its plain version on the "
             f"{sum(k == name for k, _ in checked)} input shapes and geometries the rows "
-            f"launched it on: {'N' if name == 'gate_front' else 'Ny'} {ns}")
+            f"launched it on: {'N' if name == 'gate_front_y' else 'Ny'} {ns}")
 
     miller = card[[r[0] for r in rows()].index("miller")]["lines"]
     cells = [json.loads(line) for line in miller[:-1]]
@@ -1727,8 +1972,8 @@ def phase_sweeps(dev):
           and len(failed) == 4 and miller[-1] == '{"summary": "20/24 exact"}',
           f"Miller matrix: {miller[-1]}, failing {failed}; the JAX tool's run fails "
           "exactly the four M=2 + interferer cells")
-    return {"gate_front": launches["gate_front"], "stream": bodies["stream"],
-            "segment": bodies["segment"]}
+    return {"gate_front": launches["gate_front"], "front_y": fronts["y"],
+            "stream": bodies["stream"], "segment": bodies["segment"]}
 
 
 # Phase 20: the bench twins (gen2_rfid_tpu_torch/tools/bench*.py) at full
@@ -1757,7 +2002,8 @@ def bench_run(twin, argv):
         lines, seconds = run_twin(twin, list(argv) + ["--decodes", str(BENCH_DECODES)], "cuda")
     finally:
         kernels.keep_inputs(False)
-    got = {"gate_front": kernels.launches["gate_front"], "stream": kernels.stack_bodies["stream"],
+    got = {"gate_front": kernels.launches["gate_front"], "front_y": kernels.front_bodies["y"],
+           "front_full": kernels.front_bodies["full"], "stream": kernels.stack_bodies["stream"],
            "segment": kernels.stack_bodies["segment"], "gate_scan": kernels.launches["gate_scan"]}
     log(f"[bench] {twin} {' '.join(argv)}: {seconds:.3f} s wall, launches {got}")
     for line in lines:
@@ -1765,22 +2011,27 @@ def bench_run(twin, argv):
     return [json.loads(line) for line in lines], got
 
 
-def phase_bench(dev):
+def phase_bench(dev, both, fmt):
     """Phase 20: the three bench twins' ``main``s at full size on the card,
     ``BENCH_DECODES`` timed decodes each: the flagship, each of the eight
     cases (one ``main`` a case), and the scaling harness at 8 positions.
     Each line names the card and its power limit and reads its EPCs on every
-    decode; every decode launches exactly one gate_front and, native
-    single-channel, one gate_stack (wideband8: one of each a channel; the
-    sharded decode one of each a position); both kernels are then bit-equal
-    to their plain versions on every input each run launched them on,
-    multitag_q4's and blf160's among them.  Returns the launches: gate_front's,
-    and gate_stack's by kernel body."""
+    decode; every decode launches exactly one gate_front (its y build) and,
+    native single-channel, one gate_stack (wideband8: one of each a channel;
+    the sharded decode one of each a position); both kernels are then
+    bit-equal to their plain versions on every input each run launched them
+    on, multitag_q4's and blf160's among them, and gate_front's y build is
+    timed on blf640's and blf160's.  Returns the launches (gate_front's, its
+    y build's, gate_stack's by kernel body) and the y build's rows."""
     import torch
 
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps
     from gen2_rfid_tpu_torch.tools.bench_configs import CASES
 
-    name, total = torch.cuda.get_device_name(0), {"gate_front": 0, "stream": 0, "segment": 0}
+    name = torch.cuda.get_device_name(0)
+    total = {"gate_front": 0, "front_y": 0, "stream": 0, "segment": 0}
+    y_rows = {}
     runs = [("bench", [], "iq_decode_throughput")]
     runs += [("bench_configs", ["--configs", case], case) for case in CASES]
     for twin, argv, label in runs:
@@ -1798,8 +2049,9 @@ def phase_bench(dev):
         check(line["launches"] == want, f"{label}: launches a decode {line['launches']}, "
                                         f"expected {want}")
         runs_n = BENCH_DECODES + 1
-        check(got == {"gate_front": runs_n * n_chan, body: runs_n * n_chan,
-                      ("segment" if body == "stream" else "stream"): 0, "gate_scan": 0},
+        check(got == {"gate_front": runs_n * n_chan, "front_y": runs_n * n_chan, "front_full": 0,
+                      body: runs_n * n_chan, ("segment" if body == "stream" else "stream"): 0,
+                      "gate_scan": 0},
               f"{label}: {got} for {runs_n} decodes of {n_chan} channel(s)")
         if label == "iq_decode_throughput":
             check(line["samples_per_iter"] == BENCH_N, f"flagship N {line['samples_per_iter']}")
@@ -1809,10 +2061,17 @@ def phase_bench(dev):
         else:
             log(f"[bench roles] {label}: {line['roles']}")
         checked = kept_kernel_checks()
-        check({k for k, _ in checked} == {"gate_front", "gate_stack"},
+        check({k for k, _ in checked} == {"gate_front_y", "gate_stack"},
               f"{label}: kept inputs {checked}")
-        log(f"[bench kernels] {label}: gate_front and gate_stack bit-equal to their plain "
+        log(f"[bench kernels] {label}: gate_front_y and gate_stack bit-equal to their plain "
             f"versions at the shapes it launched them on: {sorted(checked)}")
+        if label in ("blf640", "blf160"):
+            c = CASES[label].cfg
+            geo = (c.decim, front_taps(c), c.win_length, c.dc_length)
+            (x,) = [x for (k, _, build, *_), x in kernels.kept.items()
+                    if k == "gate_front" and build == "y"]
+            y_rows[label] = dict(y_report(label, x, geo, both, fmt),
+                                 launches=got["front_y"] // runs_n)
         for k in total:
             total[k] += got[k]
 
@@ -1830,13 +2089,13 @@ def phase_bench(dev):
         check(line["launches"][key] == want,
               f"bench_scaling n_time={n_time}: {line['launches'][key]}, expected {want}")
     runs_n = (BENCH_DECODES + 1) * (1 + SCALING_POSITIONS)
-    check(got == {"gate_front": runs_n, "stream": runs_n, "segment": 0, "gate_scan": 0},
-          f"bench_scaling: {got}")
+    check(got == {"gate_front": runs_n, "front_y": runs_n, "front_full": 0, "stream": runs_n,
+                  "segment": 0, "gate_scan": 0}, f"bench_scaling: {got}")
     checked = kept_kernel_checks()
     log(f"[bench kernels] scaling: bit-equal at {sorted(checked)}")
     for k in total:
         total[k] += got[k]
-    return total
+    return total, y_rows
 
 
 def main() -> int:
@@ -1858,7 +2117,8 @@ def main() -> int:
     from gen2_rfid_tpu_torch.dsp.filters import magnitude, moving_sum
     from gen2_rfid_tpu_torch.kernels import _build
     from gen2_rfid_tpu_torch.kernels.gate_front import (
-        BLOCK_Y, front_taps, gate_front, gate_front_for_cfg, gate_front_plain)
+        BLOCK_Y, BLOCK_Y_Y, front_taps, gate_front, gate_front_for_cfg, gate_front_plain,
+        gate_front_y, gate_front_y_plain)
     from gen2_rfid_tpu_torch.kernels.gate_scan import (
         dense_edges, gate_scan, gate_scan_edges_plain, gate_scan_for_cfg,
         gate_scan_plain, pulse_train, random_runs)
@@ -1953,6 +2213,40 @@ def main() -> int:
         err_front = max(err_front, *diffs)
         if label == "bench":
             y2_bench = got[0]
+    # gate_front's y build: bit for bit against its plain version and the
+    # full build's y, at the bench shape, at every ragged end of its register
+    # blocking (a thread sums 8 outputs: ny % 8 = 1..7, ny < 8) for three
+    # tiles, on the unaligned input, and at other decimations and filter
+    # lengths (the walk with runtime bounds: the Miller, blf640, 8 and 16
+    # Msps widths among them).
+    err_y = 0.0
+    y_cases = [("bench", x2_b, decim, taps, BLOCK_Y_Y, y2_bench),
+               ("noise n=40963 at 4 bytes past 16", x_odd, decim, taps, BLOCK_Y_Y, None)]
+    for blk in (BLOCK_Y_Y, 512, 64):
+        for ny_r in [16000 + m for m in range(1, 8)] + [3, 7]:
+            n = decim * ny_r + ny_r % decim
+            x = rng.normal(size=(2, n)).astype(np.float32)
+            y_cases.append((f"ny={ny_r}", torch.from_numpy(x).to(dev), decim, taps, blk, None))
+    for d, t in ((1, 6), (2, 12), (2, 6), (1, 100), (1, 200), (3, 7), (1, 1), (2, 9)):
+        for n, blk in ((30001, BLOCK_Y_Y), (30001, 256), (t + 2, BLOCK_Y_Y)):
+            x = rng.normal(size=(2, n)).astype(np.float32)
+            y_cases.append((f"decim {d} taps {t} n={n}", torch.from_numpy(x).to(dev), d, t, blk,
+                            None))
+    for label, x2, d, t, blk, full_y in y_cases:
+        got = gate_front_y(x2, d, t, block_y=blk)
+        want = gate_front_y_plain(x2, d, t)
+        if full_y is None:
+            full_y = gate_front(x2, d, t, win, dcw)[0]
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max()) if got.numel() else 0.0
+        check(torch.equal(got, want) and torch.equal(got, full_y),
+              f"gate_front_y is not bit-equal to its plain version and the full build's y on "
+              f"{label} block={blk} (max|kernel-plain| {diff:.3g})")
+        err_y = max(err_y, diff)
+    log(f"[gate_front_y] bit-equal to its plain version and to the full build's y on "
+        f"{len(y_cases)} inputs: the bench shape, ny % 8 = 1..7 and ny < 8 at block_y "
+        f"{BLOCK_Y_Y}, 512 and 64, an input 4 bytes past 16, decim/taps 1/6, 2/12, 2/6, "
+        f"1/100, 1/200, 3/7, 1/1, 2/9")
     # gate_stack: flags exactly equal (run 0: the automatic run) on the bench
     # y, noise, every input the CPU models are held to, bench-size lengths on
     # a run boundary and one past it; every width but ReaderConfig's among
@@ -1988,6 +2282,12 @@ def main() -> int:
         if got.numel():
             err_stack = max(err_stack, int((got - want).abs().max()))
 
+    # From here to phase 18 the kernels keep their inputs, and after each
+    # phase (hold_kept) gate_front's two builds and gate_stack are held bit
+    # for bit against their plain versions on every shape and geometry the
+    # phase launched them on.
+    kernels.keep_inputs(True)
+
     # ---- phase 2: the golden trace on CUDA, against a CPU run ----
     cfg_g = ReaderConfig()
     tr_g = golden_trace(cfg_g)
@@ -1995,12 +2295,12 @@ def main() -> int:
     kernels.reset_launches()
     st_g, dec_g = decode_capture_planar(x2_g.to(dev), cfg_g)
     torch.cuda.synchronize()
-    golden_launches = dict(kernels.launches)
+    golden_launches = launch_counts()
     log(format_results(st_g))
     log(f"[golden] launches {golden_launches}")
     check(golden_tuple(st_g) == GOLDEN, "golden tuple not reproduced on CUDA")
-    check(golden_launches["gate_front"] and golden_launches["gate_stack"],
-          "golden decode did not launch both front kernels")
+    check(golden_launches == counts_of(1, 1),
+          "golden decode: not one launch of gate_front's y build and one of gate_stack")
     st_c, dec_c = decode_capture_planar(x2_g, cfg_g, device="cpu")
     same_as_cpu("golden", (st_g, dec_g), (st_c, dec_c))
     x2_gd = x2_g.to(dev)
@@ -2012,14 +2312,14 @@ def main() -> int:
     kernels.reset_launches()
     st_b, _ = decode_capture_planar(x2_b, cfg_b)
     torch.cuda.synchronize()
-    main_launches = dict(kernels.launches)
+    main_launches = launch_counts()
     log(format_results(st_b))
     log(f"[bench] launches {main_launches}")
     check(int(st_b.n_epc_correct) == expected_b == 640
           and int(st_b.tag_reads[27]) == 640,
           f"bench decode: {int(st_b.n_epc_correct)} EPCs, expected {expected_b}")
-    check(main_launches["gate_front"] and main_launches["gate_stack"],
-          "bench decode did not launch both front kernels")
+    check(main_launches == counts_of(1, 1),
+          "bench decode: not one launch of gate_front's y build and one of gate_stack")
     bench_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_b), 11)
     log(f"[bench] decode {bench_ms:.3f} ms for {n_b} samples "
         f"({n_b / bench_ms / 1e3:.1f} Msamples/s, "
@@ -2089,6 +2389,13 @@ def main() -> int:
         f"({stack_by}); achieved {stack_bytes / stack_t['read'] / 1e6:.0f} GB/s (read flush)")
     log(f"[time] gate_stack at golden Ny={y2_gold.shape[1]}: stream {fmt(stack_gold_t)}")
     segment_rows = {"blf640": segment_report("blf640 bursts", y2_blf, BLF640, both, fmt, flush)}
+    # gate_front's y build at the bench shape, its tile swept, and at the
+    # golden shape, beside its bound, its plain version and conv1d.
+    y_rows = {"bench": y_report("bench", x2_b, (decim, taps, win, dcw), both, fmt,
+                                full_y=y2_bench, sweep=flush),
+              "golden": y_report("golden", x2_g.to(dev), (decim, taps, win, dcw), both, fmt,
+                                 full_y=y2_gold)}
+    hold_kept("phases 2-4")
 
     # ---- phase 5: where the bench decode's time goes ----
     stage_breakdown(x2_b, cfg_b)
@@ -2099,20 +2406,22 @@ def main() -> int:
     kernels.reset_launches()
     run_gc = decode_capture_planar(x2_gd, cfg_gc)
     torch.cuda.synchronize()
-    log(f"[compat golden] launches {dict(kernels.launches)}, "
-        f"tuple {golden_tuple(run_gc[0])}")
+    got = launch_counts()
+    log(f"[compat golden] launches {got}, tuple {golden_tuple(run_gc[0])}")
     check(golden_tuple(run_gc[0]) == GOLDEN, "compat golden tuple not reproduced on CUDA")
+    check(got == counts_of(1, build="full"), "compat golden: not one launch of gate_front's "
+                                             "full build and nothing else")
     same_as_cpu("compat golden", run_gc, decode_capture_planar(x2_g, cfg_gc, device="cpu"))
     cfg_bc = ReaderConfig(mode="compat", max_events=1536)
     kernels.reset_launches()
     st_bc, _ = decode_capture_planar(x2_b, cfg_bc)
     torch.cuda.synchronize()
-    compat_launches = dict(kernels.launches)
+    compat_launches = launch_counts()
     log(f"[compat bench] launches {compat_launches}")
     check(int(st_bc.n_epc_correct) == 640 and int(st_bc.tag_reads[27]) == 640,
           f"compat bench decode: {int(st_bc.n_epc_correct)} EPCs, expected 640")
-    check(compat_launches["gate_front"] and not compat_launches["gate_stack"],
-          "compat bench decode: gate_front must run and gate_stack must not")
+    check(compat_launches == counts_of(1, build="full"),
+          "compat bench decode: gate_front's full build must run once and gate_stack not")
     compat_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bc), 7)
     log(f"[compat bench] decode {compat_ms:.3f} ms for {n_b} samples "
         f"({n_b / compat_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
@@ -2176,13 +2485,13 @@ def main() -> int:
     kernels.reset_launches()
     st_be, _ = decode_capture_planar(x2_b, cfg_b, exact_gate=True)
     torch.cuda.synchronize()
-    exact_launches = dict(kernels.launches)
+    exact_launches = launch_counts()
     log(f"[exact bench] launches {exact_launches}")
     check(int(st_be.n_epc_correct) == 640 and int(st_be.tag_reads[27]) == 640,
           f"exact-gate bench decode: {int(st_be.n_epc_correct)} EPCs, expected 640")
-    check(exact_launches["gate_front"] and exact_launches["gate_scan"]
-          and not exact_launches["gate_stack"],
-          "exact-gate bench decode: gate_front and gate_scan must run, gate_stack not")
+    check(exact_launches == counts_of(1, gate_scan=1, build="full"),
+          "exact-gate bench decode: gate_front's full build and gate_scan must run once, "
+          "gate_stack not")
     exact_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_b, exact_gate=True), 5)
     log(f"[exact bench] decode {exact_ms:.3f} ms for {n_b} samples "
         f"({n_b / exact_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
@@ -2229,16 +2538,18 @@ def main() -> int:
     # ---- phase 8: the optional FM0 stages on the golden trace ----
     def native_path_run(label, x2, c, once=False):
         """One decode with the counts set to 0 just before and read just
-        after: the native path runs both front kernels and not gate_scan;
-        with ``once``, each front kernel exactly once.  Returns the decode
-        and the counts it read."""
+        after: the native path runs both front kernels (gate_front's y
+        build) and not gate_scan; with ``once``, each front kernel exactly
+        once.  Returns the decode and the counts it read."""
         kernels.reset_launches()
         run_o = decode_capture_planar(x2, c)
         torch.cuda.synchronize()
-        got = dict(kernels.launches)
+        got = launch_counts()
         log(f"[{label}] launches {got}")
         check(got["gate_front"] and got["gate_stack"] and not got["gate_scan"],
               f"{label}: gate_front and gate_stack must run, gate_scan not")
+        check(got["front_y"] == got["gate_front"] and not got["front_full"],
+              f"{label}: gate_front must run its y build only")
         check(not once or (got["gate_front"], got["gate_stack"]) == (1, 1),
               f"{label}: gate_front and gate_stack must launch once each")
         return run_o, got
@@ -2289,51 +2600,83 @@ def main() -> int:
         f"torch.add(1, x, alpha=2) {fmt(probe_library_t)}, empty launch "
         f"{fmt(empty_t)}, bound {probe_bound:.2e} ms ({probe_by})")
 
+    hold_kept("phases 5-9")
+
     # ---- phases 10-12: Miller, wideband, stream ----
     miller_shapes = phase_miller(dev, both, fmt, flush, native_path_run)
+    hold_kept("phase 10")
     phase_wideband(dev, both, fmt)
-    phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b)
+    hold_kept("phase 11")
+    stream_tiles = phase_stream(cfg_g, tr_g, st_g, iq_b, cfg_b, flush)
+    hold_kept("phase 12")
 
     # ---- phases 13-14: antenna-diversity MRC, EPC-window SIC ----
     mrc_launches, _ = phase_mrc(dev)
+    hold_kept("phase 13")
     sic_launches, _ = phase_sic(dev, x2_b, cfg_b)
+    hold_kept("phase 14")
 
     # ---- phase 15: the CLI on the card ----
     cli_launches_b, cli_launches_exact = phase_cli(dev, iq_b, tr_g)
+    hold_kept("phase 15")
 
     # ---- phase 16: 8 and 16 Msps captures, the segment kernel's widest ----
-    high_rows, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
+    high, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
+    hold_kept("phase 16")
     # ---- phase 17: the closed-loop live reader ----
-    live = phase_live(dev, both, fmt)
+    live = phase_live(dev, both, fmt, flush)
+    hold_kept("phase 17")
     # ---- phase 18: the time- and channel-sharded decode ----
     sharded_launches, shard_rows = phase_sharded(dev, iq_b, both, fmt)
+    hold_kept("phase 18")
+    kernels.keep_inputs(False)
     # ---- phase 19: the envelope sweeps ----
     sweep_launches = phase_sweeps(dev)
     # ---- phase 20: the bench twins at full size ----
-    bench_launches = phase_bench(dev)
+    bench_launches, bench_y_rows = phase_bench(dev, both, fmt)
     segment_rows.update({k: miller_shapes["gate_stack"][k] for k in miller_shapes["gate_stack"]})
-    segment_rows.update(high_rows)
+    segment_rows.update(high["segment"])
     seg_main = segment_rows["miller4"]
+    y_rows.update(miller_shapes["gate_front_y"])
+    y_rows.update(high["y"])
+    y_rows.update(bench_y_rows)
+    y_rows["bench_shard"] = shard_rows["gate_front_y"]
+    y_main = y_rows["bench"]
 
     # ms, plain_ms and library_ms are written-flush times (the earlier
     # yardstick); the *_read keys the read-flush ones (L2 clean before each
     # run).  gate_scan's plain version is a host loop timed once, unflushed.
+    # gate_front's two builds: the full one (compat mode and the exact gate;
+    # its launches are the compat bench decode's) and the y build (every
+    # path that reads only y; its launches are the native bench decode's).
     kernel_line = {"kernels": [
         {"name": "gate_front", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_front.py:88",
-         "launches": main_launches["gate_front"], "max_abs_err": err_front,
+         "launches": compat_launches["front_full"], "max_abs_err": err_front,
          "ms": front_t["write"], "plain_ms": front_plain_t["write"], "bound_ms": front_b,
          "bound_by": front_by, "library_ms": None, "ms_read": front_t["read"],
          "plain_ms_read": front_plain_t["read"], "library_ms_read": None,
-         "miller": miller_shapes["gate_front"], "launches_mrc4": mrc_launches["gate_front"],
-         "launches_sic2_recovery": sic_launches["gate_front"],
-         "launches_cli": cli_launches_b["gate_front"],
-         "launches_live": live["gate_front"][0], "live_shapes": live["gate_front"][1],
-         "launches_sharded": sharded_launches["gate_front"],
-         "sharded_shape": shard_rows["gate_front"],
-         "launches_sweeps": sweep_launches["gate_front"],
-         "launches_bench": bench_launches["gate_front"]},
+         "launches_exact": exact_launches["front_full"],
+         "launches_cli_exact": cli_launches_exact["front_full"],
+         "miller": miller_shapes["gate_front"], "high_rates": high["full"],
+         "live_shapes": live["gate_front"][1], "sharded_shape": shard_rows["gate_front"]},
+        {"name": "gate_front_y", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
+         "replaces": "gen2_rfid_tpu/kernels/gate_front.py:88",
+         "launches": main_launches["front_y"], "max_abs_err": err_y,
+         "ms": y_main["ms"], "plain_ms": y_main["plain_ms"], "bound_ms": y_main["bound_ms"],
+         "bound_by": y_main["bound_by"], "library_ms": y_main["library_ms"],
+         "ms_read": y_main["ms_read"], "plain_ms_read": y_main["plain_ms_read"],
+         "library_ms_read": y_main["library_ms_read"], "shapes": y_rows,
+         "launches_mrc4": mrc_launches["front_y"],
+         "launches_sic2_recovery": sic_launches["front_y"],
+         "launches_cli": cli_launches_b["front_y"],
+         "launches_live": live["gate_front_y"][0], "live_shapes": live["gate_front_y"][1],
+         "stream_tiles": stream_tiles,
+         "launches_sharded": sharded_launches["front_y"],
+         "launches_sweeps": sweep_launches["front_y"],
+         "launches_bench": bench_launches["front_y"]},
         {"name": "gate_stack", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_stack.cu",
          "replaces": "gen2_rfid_tpu/kernels/gate_stack.py:113",

@@ -1,4 +1,7 @@
 // gate_front: fused gate front end on one pass over planar ADC-rate I/Q.
+// Two builds: the full one here (compat mode and the exact gate), and the
+// y build further down (gate_front_y: y alone, every path that reads only
+// y).
 //
 // Replaces the Pallas TPU kernel gen2_rfid_tpu/kernels/gate_front.py::gate_front
 // (kernel body `_kernel`).  For every post-decimation sample k < Ny = N / decim:
@@ -155,16 +158,19 @@ __device__ __forceinline__ void window_sums(const float* __restrict__ a, int e0,
   }
 }
 
+// dst[k..k+N) = v, 16 bytes a store where vec and the N outputs are all in
+// [0, ny); the outputs past ny are dropped.
+template <int N>
 __device__ __forceinline__ void store(float* __restrict__ dst, long long k, long long ny,
-                                      const float (&v)[R], bool vec) {
-  if (vec && k + R <= ny) {
+                                      const float (&v)[N], bool vec) {
+  if (vec && k + N <= ny) {
 #pragma unroll
-    for (int q = 0; q < R / 4; ++q)
+    for (int q = 0; q < N / 4; ++q)
       *reinterpret_cast<float4*>(dst + k + 4 * q) =
           make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
   } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int r = 0; r < N; ++r)
       if (k + r < ny) dst[k + r] = v[r];
   }
 }
@@ -176,12 +182,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_
                "r"(src_bytes));
 }
 
-// Issue the copies of one tile's x slab (both planes) into buf: buf[u] =
-// x_re[x0 + u], buf[xcap + u] = x_im[x0 + u], 0 outside [0, n).
+// Issue the copies of one tile's x slab (both planes) into buf by the
+// kBlock threads of a block: buf[u] = x_re[x0 + u], buf[xcap + u] =
+// x_im[x0 + u], 0 outside [0, n).
+template <int kBlock = kThreads>
 __device__ __forceinline__ void stage(float* buf, const float* __restrict__ xre,
                                       const float* __restrict__ xim, long long x0,
                                       long long n, int xcap) {
-  for (int u = threadIdx.x; u < xcap; u += kThreads) {
+  for (int u = threadIdx.x; u < xcap; u += kBlock) {
     const long long g = x0 + u;
     const bool in = g >= 0 && g < n;
     const long long gs = in ? g : 0;
@@ -297,6 +305,32 @@ gate_front_kernel(const float* __restrict__ x2, long long n, int decim_rt, int t
   }
 }
 
+// The grid of one wave of persistent blocks of ``kernel`` (as many as fit on
+// the card at ``threads`` a block and ``smem`` bytes of shared memory a
+// block), at most ntiles.
+template <typename Kernel>
+cudaError_t wave_grid(Kernel kernel, int threads, size_t smem, long long ntiles,
+                      unsigned* grid) {
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess)
+    return err;
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                            smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long wave = static_cast<long long>(per_sm) * sms;
+  *grid = static_cast<unsigned>(ntiles < wave ? ntiles : wave);
+  return cudaSuccess;
+}
+
 template <int kDecim, int kTaps, int kWin, int kDc, int kPasses>
 int launch(const float* x2, long long n, int decim, int n_taps, int win, int dcw,
            int block_y, long long ny, float* y2, float* amp, float* avgsum,
@@ -305,28 +339,11 @@ int launch(const float* x2, long long n, int decim, int n_taps, int win, int dcw
   if (shp.ngr > kPasses * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(shp);
   auto* kernel = gate_front_kernel<kDecim, kTaps, kWin, kDc, kPasses>;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // One wave of persistent blocks, each walking tiles blockIdx.x,
-  // blockIdx.x + gridDim.x, ...
-  int device = 0;
-  int sms = 0;
-  int per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                            smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long ntiles = (ny + block_y - 1) / block_y;
-  const long long wave = static_cast<long long>(per_sm) * sms;
-  const long long grid = ntiles < wave ? ntiles : wave;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+  unsigned grid = 0;
+  const cudaError_t err = wave_grid(kernel, kThreads, smem, ntiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, stream>>>(
       x2, n, decim, n_taps, win, dcw, block_y, ny, ntiles, y2, amp, avgsum, dcsum2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -367,4 +384,216 @@ extern "C" int gate_front_launch(const float* x2, long long n, int decim,
                                           avgsum, dcsum2, s);
   return launch<0, 0, 0, 0, kPassesMany>(x2, n, decim, n_taps, win, dcw, block_y, ny, y2, amp,
                                          avgsum, dcsum2, s);
+}
+
+// ===========================================================================
+// gate_front_y: y alone, for the callers that read nothing else.
+//
+// Every native decode (FM0 and Miller, every rate), the MRC decode, the
+// EPC-window recovery, the live reader's native windows, the stream's chunks
+// and the native shards read only y: the gate-stack kernel makes its own
+// |y| and dyadic average.  For them this kernel replaces the full build
+// above, whose window sums (W + 2D adds an output in their fixed order) and
+// window halo (max(W, D) - 1 y recomputed a tile) they threw away.  It is
+// what the JAX package's default path computes there
+// (gen2_rfid_tpu/dsp/filters.py::matched_filter_decimate); on the TPU the
+// Pallas kernel gen2_rfid_tpu/kernels/gate_front.py::gate_front computes it
+// as the first of its four outputs.  For k < Ny = N / decim:
+//
+//   y[k] = sum_{j<T} x[k*decim - (T-1) + j]   zero history, j = 0..T-1
+//
+// in the full build's order, so its y is bit-equal to the full build's and
+// to kernels/gate_front.py::gate_front_y_plain's.
+//
+// Bound on an H100: 8 bytes a sample in and 8 a y out against 2T adds a y.
+// ReaderConfig's widths (decim 5, T 25) and the Miller widths move bytes
+// (0.028 ms at the bench shape); at 8 and 16 Msps, decim 1, T 100 and 200,
+// the adds bound it.  A float add issues at 128 a clock an SM, half the 67
+// TFLOP/s that counts an FMA as two operations, so an add-bound shape
+// reaches at most half of its bound.
+//
+// * The halo is the taps' alone: a tile of block_y outputs reads
+//   (block_y - 1)*decim + T samples a plane.  One wave of persistent blocks
+//   walks the tiles; a tile's slab lands in shared memory by the full
+//   build's 4-byte cp.async (stage(): any alignment of x2, zero fill
+//   outside the capture), in two buffers, so the block issues the next
+//   tile's copies and then sums this one.
+// * A thread sums RY = 8 consecutive y: one walk of their union span,
+//   (RY-1)*decim + T values a plane, 16 bytes a shared load, with RY
+//   independent add chains a plane.  The walk is three loops: the span's
+//   middle, where every chain takes all four values of a load
+//   ((RY-1)*decim <= u and u + 3 < T), adds with no test; only its head
+//   and tail test the tap index.
+// * A block is 128 threads, one group of 8 outputs each at the default
+//   tile of 1024: small blocks keep every thread busy and let more blocks
+//   share an SM, so that the last round of tiles, which only some blocks
+//   have, is a smaller share of an add-bound shape's time.
+// * ReaderConfig's widths compile with decim and T constant: the walk
+//   unrolls whole and every test folds away.
+// * Stores are 16-byte, two a plane a thread (plane 1 when Ny % 4 == 0).
+
+namespace {
+
+constexpr int RY = 8;            // consecutive y a thread sums
+constexpr int kYThreads = 128;   // a block of the y build
+
+struct YShape {
+  int span4;  // tap span of a thread's RY outputs, rounded up to 4
+  int xcap;   // staged x samples per plane
+};
+
+__host__ __device__ inline YShape y_shape(int decim, int n_taps, int block_y) {
+  YShape s;
+  s.span4 = ((RY - 1) * decim + n_taps + 3) / 4 * 4;
+  s.xcap = (block_y / RY - 1) * RY * decim + s.span4;  // a multiple of 4
+  return s;
+}
+
+// Two buffers of two planes.
+__host__ __device__ inline size_t y_smem_bytes(const YShape& s) {
+  return 4 * static_cast<size_t>(s.xcap) * sizeof(float);
+}
+
+// Staged values u..u+3 (u a multiple of 4) of both planes.
+__device__ __forceinline__ void load4(const float* xs_re, const float* xs_im, int u,
+                                      float (&vr)[4], float (&vi)[4]) {
+  const float4 fr = *reinterpret_cast<const float4*>(xs_re + u);
+  const float4 fi = *reinterpret_cast<const float4*>(xs_im + u);
+  vr[0] = fr.x; vr[1] = fr.y; vr[2] = fr.z; vr[3] = fr.w;
+  vi[0] = fi.x; vi[1] = fi.y; vi[2] = fi.z; vi[3] = fi.w;
+}
+
+// Values u4..u4+3 of a thread's span into every accumulator.
+__device__ __forceinline__ void add_all(const float (&vr)[4], const float (&vi)[4],
+                                        float (&yr)[RY], float (&yi)[RY]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int r = 0; r < RY; ++r) {
+      yr[r] = __fadd_rn(yr[r], vr[t]);
+      yi[r] = __fadd_rn(yi[r], vi[t]);
+    }
+  }
+}
+
+// Values u4..u4+3 of a thread's span into the accumulators r whose tap
+// index u - r*decim lies in [0, T).
+__device__ __forceinline__ void add_tested(int u4, int decim, int n_taps, const float (&vr)[4],
+                                           const float (&vi)[4], float (&yr)[RY],
+                                           float (&yi)[RY]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int r = 0; r < RY; ++r) {
+      if (static_cast<unsigned>(u4 + t - r * decim) < static_cast<unsigned>(n_taps)) {
+        yr[r] = __fadd_rn(yr[r], vr[t]);
+        yi[r] = __fadd_rn(yi[r], vi[t]);
+      }
+    }
+  }
+}
+
+// kDecim, kTaps: compile-time decim and T, or 0 to read the runtime values.
+template <int kDecim, int kTaps>
+__global__ void __launch_bounds__(kYThreads)
+gate_front_y_kernel(const float* __restrict__ x2, long long n, int decim_rt, int taps_rt,
+                    int block_y, long long ny, long long ntiles, float* __restrict__ y2) {
+  extern __shared__ __align__(16) float smem[];
+  const int decim = kDecim ? kDecim : decim_rt;
+  const int n_taps = kTaps ? kTaps : taps_rt;
+  const YShape s = y_shape(decim, n_taps, block_y);
+  const int ngr = block_y / RY;
+  const float* xre = x2;
+  const float* xim = x2 + n;
+  const bool vec1 = (ny & 3) == 0;  // plane-1 outputs on 16 bytes
+  // The loads u4 whose four values every accumulator takes, (RY-1)*decim
+  // <= u4 and u4 + 3 < T, are [m0, m1); the walk's ends test the tap index.
+  const int m0 = min(((RY - 1) * decim + 3) & ~3, s.span4);
+  const int m1 = max(m0, min(n_taps & ~3, s.span4));
+
+  long long tile = blockIdx.x;
+  if (tile < ntiles)
+    stage<kYThreads>(smem, xre, xim, tile * block_y * decim - (n_taps - 1), n, s.xcap);
+  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    const float* xs_re = smem + (it & 1) * 2 * s.xcap;
+    const float* xs_im = xs_re + s.xcap;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // Every copy of this tile has landed, and every thread is done with the
+    // other buffer: the next tile may go there.
+    __syncthreads();
+    const long long next = tile + gridDim.x;
+    if (next < ntiles)
+      stage<kYThreads>(smem + ((it + 1) & 1) * 2 * s.xcap, xre, xim,
+                       next * block_y * decim - (n_taps - 1), n, s.xcap);
+    const long long k0 = tile * block_y;
+    for (int q = threadIdx.x; q < ngr; q += kYThreads) {
+      const long long k = k0 + static_cast<long long>(q) * RY;
+      if (k >= ny) break;
+      const int base = q * RY * decim;
+      float yr[RY];
+      float yi[RY];
+#pragma unroll
+      for (int r = 0; r < RY; ++r) yr[r] = yi[r] = 0.f;
+      // Value u of the span goes to accumulator r when its tap index
+      // j = u - r*decim lies in [0, T); each accumulator takes its values
+      // in increasing u, so in increasing j.
+      float vr[4];
+      float vi[4];
+      int u4 = 0;
+#pragma unroll
+      for (; u4 < m0; u4 += 4) {
+        load4(xs_re, xs_im, base + u4, vr, vi);
+        add_tested(u4, decim, n_taps, vr, vi, yr, yi);
+      }
+#pragma unroll (kTaps ? 64 : 4)
+      for (; u4 < m1; u4 += 4) {
+        load4(xs_re, xs_im, base + u4, vr, vi);
+        add_all(vr, vi, yr, yi);
+      }
+#pragma unroll
+      for (; u4 < s.span4; u4 += 4) {
+        load4(xs_re, xs_im, base + u4, vr, vi);
+        add_tested(u4, decim, n_taps, vr, vi, yr, yi);
+      }
+      store(y2, k, ny, yr, true);
+      store(y2 + ny, k, ny, yi, vec1);
+    }
+  }
+}
+
+template <int kDecim, int kTaps>
+int launch_y(const float* x2, long long n, int decim, int n_taps, int block_y, long long ny,
+             float* y2, cudaStream_t stream) {
+  const size_t smem = y_smem_bytes(y_shape(decim, n_taps, block_y));
+  auto* kernel = gate_front_y_kernel<kDecim, kTaps>;
+  const long long ntiles = (ny + block_y - 1) / block_y;
+  unsigned grid = 0;
+  const cudaError_t err = wave_grid(kernel, kYThreads, smem, ntiles, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kYThreads, smem, stream>>>(x2, n, decim, n_taps, block_y, ny, ntiles, y2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Bytes of shared memory one block of the y build takes (two buffers); the
+// wrapper checks it against the card's limit.
+extern "C" long long gate_front_y_smem_bytes(int decim, int n_taps, int block_y) {
+  return static_cast<long long>(y_smem_bytes(y_shape(decim, n_taps, block_y)));
+}
+
+// x2: (2, n) float32 planar, contiguous.  Output: y2 (2, ny), ny = n / decim,
+// 16-byte aligned.  block_y: outputs per tile, a multiple of RY.  Returns a
+// cudaError_t (0 on success); launches nothing when ny == 0.
+extern "C" int gate_front_y_launch(const float* x2, long long n, int decim, int n_taps,
+                                   int block_y, float* y2, void* stream) {
+  if (decim < 1 || n_taps < 1 || block_y < RY || block_y % RY != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ny = n / decim;
+  if (ny <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // ReaderConfig's widths compile with every loop bound a constant.
+  if (decim == 5 && n_taps == 25)
+    return launch_y<5, 25>(x2, n, decim, n_taps, block_y, ny, y2, s);
+  return launch_y<0, 0>(x2, n, decim, n_taps, block_y, ny, y2, s);
 }

@@ -6,21 +6,26 @@ counts nothing.  A caller that wants to show that a run went through the
 kernels calls ``reset_launches()`` before it and reads ``launches`` after.
 ``stack_bodies`` splits gate_stack's launches by the kernel body that ran:
 the stream kernel at ReaderConfig's widths, the segment kernel at any other.
+``front_bodies`` splits gate_front's launches by build: "y" (y alone, every
+path that reads only y) and "full" (y, |y| and both windowed sums: compat
+mode and the exact gate).
 
 ``keep_inputs(True)`` has gate_front and gate_stack keep, in ``kept``, a
 copy of the first input each launches its kernel on for every distinct
-shape and geometry, so that a caller can hold the kernels against their
-plain versions at the shapes a run gave them.
+shape and geometry (gate_front's geometry starts with its build), so that
+a caller can hold the kernels against their plain versions at the shapes a
+run gave them.
 """
 
 launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "probe": 0}
 stack_bodies = {"stream": 0, "segment": 0}
+front_bodies = {"full": 0, "y": 0}
 kept = {}
 _keeping = [False]
 
 
 def reset_launches() -> None:
-    for counts in (launches, stack_bodies):
+    for counts in (launches, stack_bodies, front_bodies):
         for name in counts:
             counts[name] = 0
 

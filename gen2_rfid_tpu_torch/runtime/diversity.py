@@ -7,10 +7,10 @@ gathered and DC-corrected per channel, and every detection statistic
 combines the channels.  Every event is decoded as both windows, as compat
 mode does.
 
-On the capture's device: one ``gate_front`` launch a channel gives y; the
-envelope sqrt(Σ_c |y_c|^2) and its windowed average feed ``gate_detect``
-(native mode: ``native_flags_from_amp``, not the gate-stack kernel, whose
-amplitude is one y's |y|).
+On the capture's device: one ``gate_front`` launch a channel (its y build)
+gives y; the envelope sqrt(Σ_c |y_c|^2) and its windowed average feed
+``gate_detect`` (native mode: ``native_flags_from_amp``, not the gate-stack
+kernel, whose amplitude is one y's |y|).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ..config import ReaderConfig
 from ..dsp import mrc
 from ..dsp.filters import moving_sum, run_sum
 from ..dsp.gate import _event_window_stats, gate_detect
-from ..kernels.gate_front import gate_front_for_cfg
+from ..kernels.gate_front import gate_front_y_for_cfg
 from .frames import gather_aligned_windows_multi
 from .inventory import (DecodedEvents, _tag_ids, check_epc_crc_batch, classify_commands,
                         classify_slots, replay_inventory, resolve_device, to_planar)
@@ -46,7 +46,7 @@ def decode_capture_mrc_planar(iq2c, cfg: ReaderConfig, device=None
     dev = resolve_device(device)
     x = torch.as_tensor(iq2c, dtype=_F32).to(dev)
     c = x.shape[0]
-    y2 = [gate_front_for_cfg(x[k].contiguous(), cfg)[0] for k in range(c)]
+    y2 = [gate_front_y_for_cfg(x[k].contiguous(), cfg) for k in range(c)]
     ys = torch.stack([torch.complex(v[0], v[1]) for v in y2])      # (C, n)
     n = ys.shape[1]
 

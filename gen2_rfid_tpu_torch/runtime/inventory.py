@@ -10,16 +10,18 @@ and with the exact sequential scan otherwise.  ``decode_events_multi`` and
 once.
 
 ``decode_capture_planar`` runs one pipeline on either device, after the
-optional CW cancellation (dsp/interference.py).  The fused front end
-(kernels/gate_front.py) gives y, |y| and the windowed |y| sum; then
+optional CW cancellation (dsp/interference.py).  The front end
+(kernels/gate_front.py) gives y; then
 
-* native mode: the gate-stack kernel (kernels/gate_stack.py) packs the gate
-  flags of y, ``gate_detect`` reads them, and ``decode_events`` decodes
-  each event's role-specialized window;
-* compat mode: ``gate_detect`` reads |y| and the average from the front
-  end, and ``decode_events`` decodes every event as both windows;
-* ``exact_gate=True``, either mode: ``gate_detect_scan`` walks the
-  reference FSM over the same |y| and average (kernels/gate_scan.py).
+* native mode: the front end's y build gives y alone, the gate-stack kernel
+  (kernels/gate_stack.py) packs the gate flags of y, ``gate_detect`` reads
+  them, and ``decode_events`` decodes each event's role-specialized window;
+* compat mode: the front end's full build gives y, |y| and the windowed |y|
+  sum, ``gate_detect`` reads |y| and the average, and ``decode_events``
+  decodes every event as both windows;
+* ``exact_gate=True``, either mode: the full build, then
+  ``gate_detect_scan`` walks the reference FSM over the same |y| and
+  average (kernels/gate_scan.py).
 
 ``replay_inventory`` follows.  On CUDA tensors the kernels launch; on CPU
 tensors their plain versions run.
@@ -38,7 +40,7 @@ from ..dsp import fm0, miller, sync
 from ..dsp.filters import boxcar_taps
 from ..dsp.gate import GateEvents, gate_detect, gate_detect_scan
 from ..dsp.interference import cancel_cw_planar
-from ..kernels.gate_front import front_taps, gate_front_for_cfg
+from ..kernels.gate_front import front_taps, gate_front_for_cfg, gate_front_y_for_cfg
 from ..kernels.gate_stack import gate_stack_for_cfg
 from ..protocol.crc import crc16_affine
 from .frames import extract_windows, gather_aligned_windows_multi
@@ -592,26 +594,28 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
     """Full pipeline from a planar (2, N) float32 ADC-rate capture
     (inventory.py:890-919).
 
-    ``cfg.cancel_cw`` first subtracts strong CW tones.  The fused front end
-    gives y, |y| and the windowed |y| sum.  Native mode gates on the
-    gate-stack kernel's flags of y; compat mode and ``exact_gate`` gate on
-    |y| and avg = sum / win_length from the front end, which is the JAX
-    package's ``pallas_front`` path.  Runs on CUDA unless ``device`` says
-    otherwise."""
+    ``cfg.cancel_cw`` first subtracts strong CW tones.  Native mode takes y
+    alone from the front end's y build, as the JAX package's default path
+    computes y alone, and gates on the gate-stack kernel's flags of y;
+    compat mode and ``exact_gate`` take y, |y| and the windowed |y| sum from
+    the full build and gate on |y| and avg = sum / win_length, which is the
+    JAX package's ``pallas_front`` path.  Runs on CUDA unless ``device``
+    says otherwise."""
     dev = resolve_device(device)
     decodes["capture"] += 1
     x2 = torch.as_tensor(iq2, dtype=torch.float32).to(dev).contiguous()
     if cfg.cancel_cw:
         x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()
-    y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
-    y = torch.complex(y2[0], y2[1])
     if exact_gate or cfg.mode == "compat":
+        y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
+        y = torch.complex(y2[0], y2[1])
         # A tensor divisor keeps the division IEEE on CUDA (PyTorch turns
         # division by a Python scalar into a reciprocal multiply there).
         avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
                                     device=dev)
         return decode_block(y, cfg, exact_gate=exact_gate, amp=amp, avg=avg)
-    return decode_block(y, cfg, gate_stack_for_cfg(y2, cfg))
+    y2 = gate_front_y_for_cfg(x2, cfg)
+    return decode_block(torch.complex(y2[0], y2[1]), cfg, gate_stack_for_cfg(y2, cfg))
 
 
 def to_planar(iq) -> torch.Tensor:

@@ -7,9 +7,9 @@ window of a decode through ``dsp/collision.py::epc_sic_batch``; the residual
 pass's frame is kept only when its CRC-16 passes and it differs from the
 window's primary frame, so extra EPCs surface only where a second frame is.
 
-On the decode's device: one ``gate_front`` launch gives the same y as the
-decode's, the windows are gathered in one batch, and the SIC runs on all of
-them at once.
+On the decode's device: one ``gate_front`` launch (its y build) gives the
+same y as the decode's, the windows are gathered in one batch, and the SIC
+runs on all of them at once.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from ..config import ReaderConfig
 from ..dsp.collision import epc_sic_batch
-from ..kernels.gate_front import gate_front_for_cfg
+from ..kernels.gate_front import gate_front_y_for_cfg
 from .inventory import DecodedEvents, _tag_ids, resolve_device, to_planar
 
 
@@ -52,7 +52,7 @@ def recover_epc_collisions(iq, dec: DecodedEvents, cfg: ReaderConfig, device=Non
     if rows.numel() == 0:
         return []
     x2 = _planar(iq).to(device=dev, dtype=torch.float32).contiguous()
-    y2 = gate_front_for_cfg(x2, cfg)[0]
+    y2 = gate_front_y_for_cfg(x2, cfg)
     y = torch.complex(y2[0], y2[1])
     n = y.shape[0]
     w = cfg.epc_window

@@ -15,8 +15,9 @@ tail (overlap-save), so that:
   the whole sequence.
 
 On CUDA each chunk runs the batch path's two kernels: the valid-mode front
-end (shard/decode_sharded.py::front_valid, one ``gate_front`` launch) and
-the gate flags (one ``gate_stack`` launch) in native mode.  Checkpoints are
+end (shard/decode_sharded.py::gate_block, one ``gate_front`` launch: its y
+build in native mode, its full build in compat) and the gate flags (one
+``gate_stack`` launch) in native mode.  Checkpoints are
 ``.npz`` files with the JAX package's names and dtypes, so either package
 resumes the other's.
 """

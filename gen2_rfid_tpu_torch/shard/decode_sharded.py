@@ -11,8 +11,9 @@ channels [k*C/n_chan, (k+1)*C/n_chan).  Then
   is the capture's zero history at the first shard and its zero tail at
   the last.  ``block_span`` holds that rule, for the blocks cut here and
   for those that shard/distributed.py reads from a file;
-* each block's front end (``front_valid``: one ``gate_front`` launch), gate
-  (native: one ``gate_stack`` launch) and decode run on its device; the
+* each block's front end (one ``gate_front`` launch: ``_fir_valid``'s y
+  build native, ``front_valid``'s full build compat), gate (native: one
+  ``gate_stack`` launch) and decode run on its device; the
   blocks that share a device decode as one batch (``decode_events_multi``
   over every channel of every such position, native mode), since every
   extended block has the same length;
@@ -37,7 +38,7 @@ import torch
 
 from ..config import ReaderConfig
 from ..dsp.gate import GateEvents, gate_detect
-from ..kernels.gate_front import front_taps, gate_front
+from ..kernels.gate_front import front_taps, gate_front, gate_front_y
 from ..kernels.gate_stack import gate_stack_for_cfg
 from ..runtime.inventory import (DecodedEvents, decode_events, decode_events_multi,
                                  replay_inventory, replay_inventory_batch)
@@ -66,10 +67,11 @@ def halo_sizes(cfg: ReaderConfig) -> Tuple[int, int]:
 
 
 def front_input(x2: torch.Tensor, cfg: ReaderConfig) -> Tuple[torch.Tensor, int, int]:
-    """(xp, k0, n_valid): the block as ``front_valid`` hands it to
-    ``gate_front``, left-padded by p = decim*ceil((T-1)/decim) - (T-1) zeros
-    and right-padded to room for the last valid output, with the first kept
-    output k0 and the count n_valid of outputs whose taps lie in the block."""
+    """(xp, k0, n_valid): the block as ``front_valid`` and ``_fir_valid`` hand
+    it to the front end, left-padded by p = decim*ceil((T-1)/decim) - (T-1)
+    zeros and right-padded to room for the last valid output, with the first
+    kept output k0 and the count n_valid of outputs whose taps lie in the
+    block."""
     n_taps, decim = front_taps(cfg), cfg.decim
     n = x2.shape[1]
     n_valid = max((n - n_taps) // decim + 1, 0)
@@ -81,9 +83,10 @@ def front_input(x2: torch.Tensor, cfg: ReaderConfig) -> Tuple[torch.Tensor, int,
 
 
 def front_valid(x2: torch.Tensor, cfg: ReaderConfig) -> Tuple[torch.Tensor, ...]:
-    """The fused front end over a block with no implicit history: (y2, amp,
-    avgsum) with y[k] = sum_{j<T} x[k*decim + j] for every k whose taps lie in
-    the block (decode_sharded.py:59-73's valid FIR with the boxcar taps).
+    """The front end's full build over a block with no implicit history (what
+    compat mode's gate reads): (y2, amp, avgsum) with y[k] = sum_{j<T}
+    x[k*decim + j] for every k whose taps lie in the block
+    (decode_sharded.py:59-73's valid FIR with the boxcar taps).
 
     One ``gate_front`` launch (the kernel on CUDA, its plain version on the
     CPU) on ``front_input``'s padded block, so that output k0 of the
@@ -104,9 +107,12 @@ def front_valid(x2: torch.Tensor, cfg: ReaderConfig) -> Tuple[torch.Tensor, ...]
 
 
 def _fir_valid(x2: torch.Tensor, cfg: ReaderConfig) -> torch.Tensor:
-    """(2, n_valid) y of ``front_valid``: the matched filter over a block
-    without implicit history."""
-    return front_valid(x2, cfg)[0]
+    """(2, n_valid) y of ``front_valid``, bit for bit, from one launch of the
+    front end's y build: the matched filter over a block without implicit
+    history (decode_sharded.py:59-73), what the native gate reads."""
+    xp, k0, n_valid = front_input(x2, cfg)
+    y2 = gate_front_y(xp, cfg.decim, front_taps(cfg))
+    return y2[:, k0:k0 + n_valid].contiguous()
 
 
 @functools.lru_cache(maxsize=32)
@@ -146,16 +152,18 @@ def extended_block(x: torch.Tensor, t: int, n_block: int, halo: Tuple[int, int],
 
 
 def gate_block(x2: torch.Tensor, cfg: ReaderConfig, cap_cfg: ReaderConfig):
-    """(y, events) of a block without implicit history: ``front_valid`` (one
-    ``gate_front`` launch), then the gate at ``cap_cfg``'s capacity on
-    ``gate_stack``'s flags of y (native, one launch) or on |y| and its
-    windowed average from the front end (compat)."""
-    y2, amp, avgsum = front_valid(x2, cfg)
-    y = torch.complex(y2[0], y2[1])
+    """(y, events) of a block without implicit history: one ``gate_front``
+    launch, then the gate at ``cap_cfg``'s capacity on ``gate_stack``'s
+    flags of ``_fir_valid``'s y (native, one launch) or on |y| and its
+    windowed average from ``front_valid`` (compat)."""
     if cfg.mode == "compat":
+        y2, amp, avgsum = front_valid(x2, cfg)
+        y = torch.complex(y2[0], y2[1])
         avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
                                     device=x2.device)
         return y, gate_detect(y, cap_cfg, amp=amp, avg=avg)
+    y2 = _fir_valid(x2, cfg)
+    y = torch.complex(y2[0], y2[1])
     return y, gate_detect(y, cap_cfg, gate_stack_for_cfg(y2, cfg))
 
 

@@ -15,7 +15,8 @@ import torch
 
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
-from gen2_rfid_tpu_torch.kernels.gate_front import BLOCK_Y, gate_front, gate_front_plain
+from gen2_rfid_tpu_torch.kernels.gate_front import (
+    BLOCK_Y, BLOCK_Y_Y, gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
     dense_edges, gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train, random_runs)
 from gen2_rfid_tpu_torch.kernels.gate_stack import (
@@ -105,6 +106,106 @@ def test_gate_front_kernel_rejects_bad_blocking(cuda):
         gate_front(x2, 5, 25, 100, 48, block_y=514)
     with pytest.raises(ValueError, match="too large"):
         gate_front(x2, 5, 25, 100, 48, block_y=4096)
+
+
+# ---- gate_front's y build ------------------------------------------------------
+
+def _same_y(x2, decim, taps, block_y=None, win=100, dcw=48):
+    """The y build against its plain version and the full build's y."""
+    got = gate_front_y(x2, decim, taps, block_y=block_y)
+    want = gate_front_y_plain(x2, decim, taps)
+    full = gate_front(x2, decim, taps, win, dcw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, full), (decim, taps, block_y)
+
+
+@pytest.mark.parametrize("n,block_y", [(40961, 512), (9999, 64), (10240, 2048), (7, 512)])
+def test_gate_front_y_kernel_matches_plain(cuda, n, block_y):
+    x2 = torch.from_numpy(_noise(n, n)).to(cuda)
+    before = dict(kernels.launches), dict(kernels.front_bodies)
+    got = gate_front_y(x2, 5, 25, block_y=block_y)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_front"] == before[0]["gate_front"] + 1
+    assert kernels.front_bodies == {"full": before[1]["full"], "y": before[1]["y"] + 1}
+    assert torch.equal(got, gate_front_y_plain(x2, 5, 25))
+
+
+# N giving ny % 8 = 1..7 (the thread's 8 outputs) and ny < 8.
+Y_LENGTHS = [5 * (16000 + m) + m % 5 for m in range(1, 8)] + [5 * 3 + 2, 5 * 7 + 4]
+
+
+@pytest.mark.parametrize("block_y", [BLOCK_Y_Y, 512, 1024, 64, 8])
+def test_gate_front_y_kernel_bit_equal_at_remainders(cuda, block_y):
+    """Every ragged end of the register blocking, bit for bit."""
+    for n in Y_LENGTHS:
+        _same_y(torch.from_numpy(_noise(n, n)).to(cuda), 5, 25, block_y)
+
+
+@pytest.mark.parametrize("decim,taps", [(1, 6), (2, 12), (2, 6), (1, 100), (1, 200), (3, 7),
+                                        (2, 9), (1, 1), (5, 24)])
+def test_gate_front_y_kernel_other_shapes(cuda, decim, taps):
+    """Other decimations and filter lengths than ReaderConfig's (the walk
+    with runtime bounds: the Miller, blf640 and 8 / 16 Msps widths among
+    them), bit for bit, at short and long inputs."""
+    for n, block_y in ((30001, None), (30001, 256), (taps + 2, None)):
+        _same_y(torch.from_numpy(_noise(n, decim)).to(cuda), decim, taps, block_y)
+
+
+def test_gate_front_y_kernel_on_unaligned_input(cuda):
+    """x2 starting 4 bytes past a 16-byte boundary, with an odd N."""
+    n = 40963
+    flat = torch.empty(2 * n + 1, device=cuda)[1:]
+    x2 = flat.view(2, n).copy_(torch.from_numpy(_noise(n, 5)))
+    assert x2.data_ptr() % 16 == 4
+    _same_y(x2, 5, 25)
+    _same_y(x2, 1, 200)
+
+
+def test_gate_front_y_kernel_rejects_bad_blocking(cuda):
+    x2 = torch.zeros((2, 1000), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        gate_front_y(x2, 5, 25, block_y=516)
+    with pytest.raises(ValueError, match="too large"):
+        gate_front_y(x2, 5, 25, block_y=40000)
+
+
+@pytest.mark.parametrize("adc", [8e6, 16e6])
+def test_gate_front_y_kernel_at_high_rates(cuda, adc):
+    """At 8 and 16 Msps, decim 1 (T 100 and 200): the walk's unpredicated
+    middle carries most of the adds."""
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps
+
+    c = ReaderConfig(adc_rate=adc, decim=1)
+    _same_y(torch.from_numpy(_noise(300_007, 13)).to(cuda), 1, front_taps(c),
+            win=c.win_length, dcw=c.dc_length)
+
+
+def test_gate_front_y_tile_spreads_short_captures(cuda):
+    """A short capture's tile gives every SM a tile; a long one takes
+    BLOCK_Y_Y."""
+    from gen2_rfid_tpu_torch.kernels.gate_front import y_block_y
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert y_block_y(5, 25, 921, cuda) == 8
+    assert y_block_y(5, 25, 8 * sms * 3 - 1, cuda) == 24
+    assert y_block_y(5, 25, 10 ** 7, cuda) == BLOCK_Y_Y == 1024
+
+
+def test_front_bodies_count_each_build_and_keep_it(cuda):
+    """gate_front counts each launch under its build and keeps the build in
+    its input's geometry."""
+    kernels.reset_launches()
+    kernels.keep_inputs(True)
+    try:
+        x2 = torch.from_numpy(_noise(1000, 4)).to(cuda)
+        gate_front_y(x2, 5, 25)
+        gate_front_y(x2, 5, 25)
+        gate_front(x2, 5, 25, 100, 48)
+    finally:
+        kernels.keep_inputs(False)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_front"] == 3 and kernels.front_bodies == {"full": 1, "y": 2}
+    assert sorted(k[2] for k in kernels.kept) == ["full", "y"]
 
 
 @pytest.mark.parametrize("n,run", [(40961, 32), (9999, 8), (10240, 128), (150, 0)])
