@@ -33,9 +33,10 @@ then:
    native windows, stream chunks and native shards take the y build,
    compat mode and the exact gate the full build.  From phase 2 to phase 18
    the kernels keep a copy of their first input at each shape and geometry
-   (``kernels.keep_inputs``), and after each phase gate_front's two builds
-   and gate_stack are held bit for bit against their plain versions on
-   every one of them (``hold_kept``); phases 19 and 20 do the same each;
+   (``kernels.keep_inputs``), and after each phase gate_front's two builds,
+   gate_stack and compat_gate are held bit for bit against their plain
+   versions on every one of them (``hold_kept``); phases 19 and 20 do the
+   same each;
 4. sweeps gate_front's tile (block_y outputs) and gate_stack's run (words a
    warp streams, at the bench and golden shapes) and prints the fastest,
    then times each kernel and its plain version at the bench shape, beside
@@ -56,8 +57,19 @@ then:
 5. breaks the bench decode down: synchronized host wall time per stage, and
    the device's busy share and time per kernel from ``torch.profiler``;
 6. compat mode: the golden tuple on CUDA, its int/bool fields equal to a CPU
-   run, and the bench capture 640/640 through gate_front without gate_stack,
-   timed;
+   run, and the bench capture 640/640, each through one launch of
+   gate_front's full build and one of compat_gate (no gate_stack); the
+   golden trace streamed in 200,000-sample chunks (equal to the batch
+   decode), the bench capture at n_time 8 (equal to its single decode) and
+   a 3-round live loop (equal to its CPU run), each gate through one
+   compat_gate launch; compat_gate bit-equal to its plain version at
+   golden (also 4 bytes past a 16-byte boundary), bench, a drawn input
+   past 2 x 1,024 tiles and every input of
+   ``kernels/compat_gate.py::compat_cases`` at tiles 32, 33 and 4,096, its
+   tile model equal to it at golden and bench; compat_gate timed at bench,
+   golden and a live window beside its bound, its plain version and one
+   ``torch.cummax`` of an int32 row; the bench decode with the kernel and
+   with the plain chain swapped in, in turns, timed and profiled;
 7. ``exact_gate=True``: the gate-scan kernel against its plain version
    (golden |y| and average, the bench shape, noise, dense edges at lengths
    that are not multiples of 32 or 1024, ties, random runs, and synthetic
@@ -201,8 +213,11 @@ portal24 under ``launches_live`` and its live shapes' rows under
 ``launches_sweeps`` and in phase 20's under ``launches_bench`` (the
 stream kernel there, the segment kernel under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
-Miller shapes and 8 and 16 Msps under ``shapes``), the card's name and power
-limit, and last
+Miller shapes and 8 and 16 Msps under ``shapes``); ``compat_gate`` (its
+launches the compat bench decode's, its stream, shard and live launches,
+its bench, golden and live-window rows under ``shapes``, the compat bench
+decode's ms and profile with the plain chain and with the kernel), the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package ``gen2_rfid_tpu``.
@@ -210,6 +225,7 @@ JAX or of the JAX package ``gen2_rfid_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -225,6 +241,9 @@ FP32_FLOP_PER_S = 67e12
 # Queries, final round, EPCs, unique tags, reads of tag 0x1b: the reference
 # README's golden tuple.
 GOLDEN = (71, 72, 70, 1, 70)
+# The bench capture (bench.py's workload): 80 rounds of tag 27 seed 7 at
+# simulator seed 2, tiled 8 times.
+BENCH_ROUNDS, BENCH_TILES = 80, 8
 
 
 class SmokeFailure(Exception):
@@ -318,10 +337,10 @@ def stage_breakdown(x2, cfg, reps=5, label="stages"):
     log(f"[{label}] sum of medians   {total:8.3f} ms")
 
 
-def device_profile(fn, reps=3, top=12, label="profile"):
-    """torch.profiler over reps decodes: device time by kernel, the share
-    of the window's wall time the device was busy, and the device ops
-    (kernels, copies, fills) a decode.  Returns the rows (device us over
+def device_profile(fn, reps=3, top=12, label="profile", unit="decode"):
+    """torch.profiler over reps decodes (or calls of ``unit``): device time
+    by kernel, the share of the window's wall time the device was busy, and
+    the device ops (kernels, copies, fills) a decode.  Returns the rows (device us over
     the reps, calls, name)."""
     import torch
     from torch.autograd import DeviceType
@@ -343,12 +362,12 @@ def device_profile(fn, reps=3, top=12, label="profile"):
         log(f"[{label}] the profiler recorded no device time")
         return rows
     n_ops = sum(r[1] for r in rows) // reps
-    log(f"[{label}] {reps} decodes: wall {wall_us / reps / 1e3:.3f} ms/decode, "
-        f"device busy {busy_us / reps / 1e3:.3f} ms/decode "
+    log(f"[{label}] {reps} {unit}s: wall {wall_us / reps / 1e3:.3f} ms/{unit}, "
+        f"device busy {busy_us / reps / 1e3:.3f} ms/{unit} "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle), "
-        f"{n_ops} device ops/decode")
+        f"{n_ops} device ops/{unit}")
     for t, count, key in sorted(rows, reverse=True)[:top]:
-        log(f"[{label}] {t / reps:9.1f} us/decode {count // reps:5d} calls  {key[:90]}")
+        log(f"[{label}] {t / reps:9.1f} us/{unit} {count // reps:5d} calls  {key[:90]}")
     return rows
 
 
@@ -373,12 +392,18 @@ def launch_counts():
     return {**kernels.launches, **{f"front_{k}": v for k, v in kernels.front_bodies.items()}}
 
 
-def counts_of(gate_front=0, gate_stack=0, gate_scan=0, probe=0, build="y"):
+def counts_of(gate_front=0, gate_stack=0, gate_scan=0, probe=0, build="y", compat_gate=0):
     """The ``launch_counts()`` of a run whose gate_front launches are all of
     one build."""
     return {"gate_front": gate_front, "gate_stack": gate_stack, "gate_scan": gate_scan,
-            "probe": probe, "front_full": gate_front * (build == "full"),
-            "front_y": gate_front * (build == "y")}
+            "compat_gate": compat_gate, "probe": probe,
+            "front_full": gate_front * (build == "full"), "front_y": gate_front * (build == "y")}
+
+
+def compat_counts(n):
+    """The launches of n compat gates, each after a front end: one of
+    gate_front's full build and one of compat_gate a gate."""
+    return counts_of(n, build="full", compat_gate=n)
 
 
 # gate_front's y build: the tiles swept at the shapes that pass ``sweep``
@@ -1510,13 +1535,14 @@ SHARDED_CASES = (
 )
 
 
-def sharded_run(label, x2, cfg, n_time, eps, single, want_epc, dev):
+def sharded_run(label, x2, cfg, n_time, eps, single, want_epc, dev, want=None):
     """One time-sharded decode of the planar (2, N) ``x2`` over ``n_time``
     positions of ``dev``, the counts set to 0 just before it and read just
     after: exactly n_time launches of each front kernel, every EPC, each
     shard's gate count within its table, and stats in every field and the
     owned trigger indices equal to ``single``, the single decode of the same
-    capture.  Returns (launches, decoder)."""
+    capture; with ``want``, those launches instead (compat mode).  Returns
+    (launches, decoder)."""
     import numpy as np
     import torch
 
@@ -1532,9 +1558,8 @@ def sharded_run(label, x2, cfg, n_time, eps, single, want_epc, dev):
     gated = gated[:, 0].tolist()
     log(f"[{label} n_time={n_time}] launches {got}; gate triggers a shard, halo included "
         f"{gated} against a table of {eps}; {int(st.n_epc_correct[0])} EPCs")
-    check(got == counts_of(n_time, n_time),
-          f"{label} n_time={n_time}: launches {got}, expected {n_time} of each front kernel "
-          f"(gate_front's y build)")
+    want = counts_of(n_time, n_time) if want is None else want
+    check(got == want, f"{label} n_time={n_time}: launches {got}, expected {want}")
     check(max(gated) <= eps, f"{label} n_time={n_time}: a shard gated {max(gated)} > {eps}")
     check(int(st.n_epc_correct[0]) == want_epc,
           f"{label} n_time={n_time}: {int(st.n_epc_correct[0])} EPCs, expected {want_epc}")
@@ -1793,20 +1818,25 @@ def sweep_tables(device: str):
 
 
 def kept_kernel_checks():
-    """gate_front's two builds and gate_stack against their plain versions,
-    bit for bit, on every input a run launched them on (one a shape and
-    geometry, kept by ``kernels.keep_inputs``).  Returns the (kernel, N)
-    checked, gate_front's y build as ``gate_front_y``."""
+    """gate_front's two builds, gate_stack and compat_gate against their
+    plain versions, bit for bit, on every input a run launched them on (one a
+    shape and geometry, kept by ``kernels.keep_inputs``; compat_gate's amp
+    and avg stacked).  Returns the (kernel, N) checked, gate_front's y build
+    as ``gate_front_y``."""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
     from gen2_rfid_tpu_torch.kernels.gate_front import (
         gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
+    from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate, compat_gate_plain
 
     checked = []
     for (name, shape, *geo), x in kernels.kept.items():
-        if name == "gate_front" and geo[0] == "y":
+        if name == "compat_gate":
+            got, want = compat_gate(x[0], x[1], *geo), compat_gate_plain(x[0], x[1], *geo)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+        elif name == "gate_front" and geo[0] == "y":
             name = "gate_front_y"
             same = torch.equal(gate_front_y(x, *geo[1:3], block_y=geo[3]),
                                gate_front_y_plain(x, *geo[1:3]))
@@ -1835,7 +1865,7 @@ def hold_kept(label):
         by_kernel.setdefault(k, set()).add(n)
     log(f"[kept kernels {label}] bit-equal to their plain versions on the "
         f"{len(checked)} input shapes and geometries launched: " + "; ".join(
-            f"{k} {'Ny' if k == 'gate_stack' else 'N'} {sorted(ns)}"
+            f"{k} {'Ny' if k in ('gate_stack', 'compat_gate') else 'N'} {sorted(ns)}"
             for k, ns in sorted(by_kernel.items())))
     kernels.keep_inputs(True)
     return checked
@@ -2098,6 +2128,237 @@ def phase_bench(dev, both, fmt):
     return total, y_rows
 
 
+# Phase 6: compat mode.  Its stream, shards and live windows: the golden
+# trace in 200,000-sample chunks; the bench capture (padded to a multiple of
+# 8 x decim) at n_time 8 with a table of 256 a shard, as phase 18's; and
+# tests/test_torch_live.py's compat loop (tag 27 seed 7, channel seed 1, 3
+# round commands, 3 EPCs).
+COMPAT_SHARDS = (8, 256)
+COMPAT_LIVE_ROUNDS = 3
+
+
+@contextlib.contextmanager
+def plain_compat_chain():
+    """While the block runs, the compat gate takes its plain version on the
+    card (the PyTorch scans the port ran before the compat-gate kernel):
+    dsp/gate.py's ``compat_gate_for_cfg`` swapped, for the decode's time
+    before and after the kernel in one process."""
+    from gen2_rfid_tpu_torch.dsp import gate
+    from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate_plain
+
+    kernel = gate.compat_gate_for_cfg
+    gate.compat_gate_for_cfg = lambda amp, avg, cfg: compat_gate_plain(
+        amp, avg, cfg.thresh_fraction, cfg.n_samples_pw // 2, cfg.n_samples_t1,
+        cfg.num_pulses_command)
+    try:
+        yield
+    finally:
+        gate.compat_gate_for_cfg = kernel
+
+
+def compat_row(label, amp, avg, args, both, fmt, reps=20, plain_reps=5):
+    """compat_gate at one shape, timed under both flushes beside its bound
+    (amp and avg in, trig and pulses_at out: 13 bytes a sample; a multiply
+    and two compares), its plain version on the card and one
+    ``torch.cummax`` of an int32 row of the same length (the library call
+    each of the plain version's scans is), and its passes' device time from
+    ``torch.profiler``.  Returns the row."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate, compat_gate_plain
+
+    n = amp.shape[0]
+    idx = torch.where(amp > avg * args[0], torch.arange(n, dtype=torch.int32, device=amp.device),
+                      -1).to(torch.int32)
+    t = both(lambda: compat_gate(amp, avg, *args), reps)
+    pt = both(lambda: compat_gate_plain(amp, avg, *args), plain_reps)
+    lt = both(lambda: torch.cummax(idx, 0), plain_reps)
+    b, by = bound(13 * n, 3 * n)
+    device_profile(lambda: compat_gate(amp, avg, *args), reps=20, top=8,
+                   label=f"profile compat_gate {label}", unit="call")
+    log(f"[time] {label} compat_gate n={n}: {fmt(t)}, bound {b:.6f} ms ({by}), "
+        f"{100 * b / t['read']:.1f}% of the read time; plain {fmt(pt)}; torch.cummax of an "
+        f"int32 row {fmt(lt)}")
+    return {"n": n, "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
+            "share_read": b / t["read"], "plain_ms": pt["write"], "plain_ms_read": pt["read"],
+            "library_ms": lt["write"], "library_ms_read": lt["read"]}
+
+
+def profile_summary(rows, reps):
+    """(device busy ms, device ops) a decode from ``device_profile``'s rows."""
+    return (sum(r[0] for r in rows) / reps / 1e3, sum(r[1] for r in rows) // reps)
+
+
+def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
+    """Phase 6: compat mode on the card.  The golden tuple (CUDA == CPU) and
+    the bench capture 640 / 640, each through one launch of gate_front's full
+    build and one of compat_gate; the golden trace streamed in chunks (equal
+    to the batch decode), the bench capture at n_time 8 (equal to its single
+    decode) and a live loop (equal to its CPU run), each gate through one
+    compat_gate launch; compat_gate bit-equal to its plain version at
+    golden (also 4 bytes past a 16-byte boundary), bench, an input of
+    2 x 1,024 tiles and 3 samples drawn at random and every input of
+    ``compat_cases`` at tiles of 32, 33 and its own, its tile model equal to
+    it at golden and bench; its time beside its bound, its plain version
+    and ``torch.cummax``; the bench decode with the kernel and with the
+    plain chain, in turns, timed and profiled.  Returns the numbers for the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.kernels.compat_gate import (
+        TILE, _lib, compat_cases, compat_gate, compat_gate_plain, compat_gate_tiles_plain)
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.runtime.live import LiveReader
+    from gen2_rfid_tpu_torch.runtime.stream import StreamDecoder
+    from gen2_rfid_tpu_torch.sim.channel import SimTagChannel
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.tools.live_scenes import DecodeLog, integer_fields
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    x2_gd = x2_g.to(dev)
+    cfg_gc = ReaderConfig(mode="compat")
+    kernels.reset_launches()
+    run_gc = decode_capture_planar(x2_gd, cfg_gc)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    log(f"[compat golden] launches {got}, tuple {golden_tuple(run_gc[0])}")
+    check(golden_tuple(run_gc[0]) == GOLDEN, "compat golden tuple not reproduced on CUDA")
+    check(got == compat_counts(1), "compat golden: not one launch of gate_front's full build "
+                                   "and one of compat_gate")
+    same_as_cpu("compat golden", run_gc, decode_capture_planar(x2_g, cfg_gc, device="cpu"))
+    cfg_bc = ReaderConfig(mode="compat", max_events=1536)
+    kernels.reset_launches()
+    st_bc, _ = decode_capture_planar(x2_b, cfg_bc)
+    torch.cuda.synchronize()
+    compat_launches = launch_counts()
+    log(f"[compat bench] launches {compat_launches}")
+    check(int(st_bc.n_epc_correct) == 640 and int(st_bc.tag_reads[27]) == 640,
+          f"compat bench decode: {int(st_bc.n_epc_correct)} EPCs, expected 640")
+    check(compat_launches == compat_counts(1),
+          "compat bench decode: gate_front's full build and compat_gate must run once, "
+          "gate_stack not")
+
+    # The stream's chunks, the shards and the live windows: one compat_gate
+    # launch a gate.
+    sd = StreamDecoder(cfg_gc, chunk_adc=200_000)
+    kernels.reset_launches()
+    st_s, total = sd.decode(iter(np.array_split(tr_g.iq, 7)))
+    torch.cuda.synchronize()
+    stream_launches = launch_counts()
+    log(f"[compat stream golden] {sd._chunk_no} chunks, launches {stream_launches}")
+    check(stream_launches == compat_counts(sd._chunk_no),
+          "compat stream: one gate_front (full build) and one compat_gate launch a chunk")
+    check(total == tr_g.iq.size and golden_tuple(st_s) == GOLDEN,
+          "compat stream: golden tuple not reproduced")
+    for f in st_s._fields:
+        check(torch.equal(getattr(st_s, f), getattr(run_gc[0], f)),
+              f"compat stream golden InventoryStats.{f} != the batch decode's")
+    n_time, eps = COMPAT_SHARDS
+    x2_p = to_planar(np.pad(iq_b, (0, (-iq_b.size) % (n_time * cfg_bc.decim)))).to(dev)
+    shard_launches, _ = sharded_run("compat bench", x2_p, cfg_bc, n_time, eps,
+                                    decode_capture_planar(x2_p, cfg_bc), 640, dev,
+                                    want=compat_counts(n_time))
+    del x2_p
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reader = LiveReader(cfg_gc, device=device)
+        decodes = DecodeLog(reader)
+        kernels.reset_launches()
+        st_l = reader.run_inventory(
+            SimTagChannel(cfg_gc, [Tag.with_id(27, seed=7)], seed=1), COMPAT_LIVE_ROUNDS)
+        torch.cuda.synchronize()
+        runs[device] = (st_l, len(decodes.calls), launch_counts())
+    (st_l, n_dec, live_launches), (st_lc, _, _) = runs["cuda"], runs["cpu"]
+    log(f"[compat live] {st_l.n_queries} queries, {st_l.n_epc_correct} EPCs; {n_dec} window "
+        f"decodes, launches {live_launches}")
+    check(live_launches == compat_counts(n_dec),
+          "compat live: one gate_front (full build) and one compat_gate launch a window")
+    check(st_l.n_epc_correct == COMPAT_LIVE_ROUNDS, "compat live: not an EPC a round")
+    a, b = integer_fields(st_l), integer_fields(st_lc)
+    check(a == b, f"compat live: card != CPU on {[k for k in a if a[k] != b[k]]}")
+    # The largest window the loop gave the kernel (main keeps its inputs
+    # through the phase; every window is one tile).
+    live = max((x for (name, shape, *_), x in kernels.kept.items()
+                if name == "compat_gate" and shape[1] <= TILE), key=lambda x: x.shape[1])
+
+    # The kernel against its plain version on the card, and its tile model.
+    check(_lib().compat_gate_tile() == TILE, "compat_gate's tile differs from its model's")
+    win = torch.tensor(float(cfg_gc.win_length), device=dev)
+    args = (cfg_gc.thresh_fraction, cfg_gc.n_samples_pw // 2, cfg_gc.n_samples_t1,
+            cfg_gc.num_pulses_command)
+    _, amp_g, s_g, _ = gate_front_for_cfg(x2_gd, cfg_gc)
+    _, amp_b, s_b, _ = gate_front_for_cfg(x2_b, cfg_bc)
+    amp_g, avg_g, amp_b, avg_b = amp_g, s_g / win, amp_b, s_b / win
+    # Drawn decisions at 2 x 1,024 tiles + 3 samples: the carry blocks take
+    # the tiles in three rounds of 1,024.
+    n_d = 2 * 1024 * TILE + 3
+    drawn = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], n_d).astype(np.float32))
+    # The golden input 4 bytes past a 16-byte boundary: scalar loads.
+    buf = torch.empty(2 * amp_g.numel() + 2, device=dev)
+    amp_u, avg_u = buf[1:amp_g.numel() + 1], buf[amp_g.numel() + 2:]
+    amp_u.copy_(amp_g)
+    avg_u.copy_(avg_g)
+    inputs = [("golden", amp_g, avg_g, args), ("bench", amp_b, avg_b, args),
+              (f"drawn n={n_d}", drawn, torch.ones(n_d), (0.5, 2, 5, 3)),
+              ("golden 4 bytes past 16", amp_u, avg_u, args)]
+    for tile in (32, 33, TILE):
+        inputs += [(f"{label} (tile {tile})", *rest) for label, *rest in compat_cases(tile)]
+    err, n_trig = 0, 0
+    for label, amp, avg, a_ in inputs:
+        amp, avg = amp.to(dev), avg.to(dev)
+        trig, pulses = compat_gate(amp, avg, *a_)
+        want_t, want_p = compat_gate_plain(amp, avg, *a_)
+        torch.cuda.synchronize()
+        n_bad = int((trig != want_t).sum()) + int((pulses != want_p).sum())
+        check(n_bad == 0, f"compat_gate differs from its plain version on {label}: "
+                          f"{n_bad} of {2 * amp.numel()} outputs")
+        err = max(err, int((pulses - want_p).abs().max()) if pulses.numel() else 0)
+        n_trig += int(want_t.sum())
+        if label in ("golden", "bench"):
+            m_t, m_p = compat_gate_tiles_plain(amp, avg, *a_)
+            check(torch.equal(m_t, trig.cpu()) and torch.equal(m_p, pulses.cpu()),
+                  f"compat_gate's tile model differs from the kernel on {label}")
+            log(f"[compat_gate {label}] kernel == plain == tile model, n={amp.numel()}, "
+                f"{int(want_t.sum())} triggers")
+    log(f"[compat_gate] bit-equal to its plain version on {len(inputs)} inputs "
+        f"({n_trig} triggers): golden (also 4 bytes past 16), bench, a drawn input of "
+        f"{n_d} samples and compat_cases at tiles 32, 33 and {TILE}")
+
+    # Times: bench, golden and the largest live window.
+    rows = {"bench": compat_row("bench", amp_b, avg_b, args, both, fmt),
+            "golden": compat_row("golden", amp_g, avg_g, args, both, fmt),
+            "live": compat_row("live window", live[0], live[1], args, both, fmt, reps=50)}
+    del amp_g, avg_g, amp_b, avg_b, s_g, s_b
+
+    # The bench decode with the kernel and with the plain chain, in turns.
+    decode_ms = {"plain_chain": [], "kernel": []}
+    for side in ("plain_chain", "kernel", "kernel", "plain_chain"):
+        with plain_compat_chain() if side == "plain_chain" else contextlib.nullcontext():
+            kernels.reset_launches()
+            decode_ms[side].append(cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bc), 7))
+            # cuda_ms runs 2 untimed and 7 timed decodes.
+            check(kernels.launches["compat_gate"] == (side == "kernel") * 9,
+                  f"compat bench decode ({side}): compat_gate launches "
+                  f"{kernels.launches['compat_gate']}")
+    log(f"[compat bench] decode ms, in turns (plain chain, kernel, kernel, plain chain): "
+        f"plain chain {decode_ms['plain_chain']}, kernel {decode_ms['kernel']} for "
+        f"{x2_b.shape[1]} samples, 640 / 640 EPCs")
+    profile = {}
+    with plain_compat_chain():
+        profile["plain_chain"] = profile_summary(device_profile(
+            lambda: decode_capture_planar(x2_b, cfg_bc), top=6,
+            label="profile compat, plain chain"), 3)
+    profile["kernel"] = profile_summary(device_profile(
+        lambda: decode_capture_planar(x2_b, cfg_bc), top=8, label="profile compat"), 3)
+    return {"launches": compat_launches, "stream": stream_launches["compat_gate"],
+            "sharded": shard_launches["compat_gate"], "live": live_launches["compat_gate"],
+            "err": err, "rows": rows, "decode_ms": decode_ms, "profile": profile}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2170,8 +2431,8 @@ def main() -> int:
 
     # ---- the bench-size capture (bench.py's workload) ----
     cfg_b = ReaderConfig(max_events=1536)
-    tr_b = synthesize_inventory(cfg_b, [Tag.with_id(27, seed=7)], n_rounds=80, seed=2)
-    reps_tile = 8
+    tr_b = synthesize_inventory(cfg_b, [Tag.with_id(27, seed=7)], n_rounds=BENCH_ROUNDS, seed=2)
+    reps_tile = BENCH_TILES
     iq_b = np.concatenate([tr_b.iq] * reps_tile)
     x2_b = to_planar(iq_b).to(dev)
     n_b = x2_b.shape[1]
@@ -2283,9 +2544,9 @@ def main() -> int:
             err_stack = max(err_stack, int((got - want).abs().max()))
 
     # From here to phase 18 the kernels keep their inputs, and after each
-    # phase (hold_kept) gate_front's two builds and gate_stack are held bit
-    # for bit against their plain versions on every shape and geometry the
-    # phase launched them on.
+    # phase (hold_kept) gate_front's two builds, gate_stack and compat_gate
+    # are held bit for bit against their plain versions on every shape and
+    # geometry the phase launched them on.
     kernels.keep_inputs(True)
 
     # ---- phase 2: the golden trace on CUDA, against a CPU run ----
@@ -2402,31 +2663,8 @@ def main() -> int:
     device_profile(lambda: decode_capture_planar(x2_b, cfg_b))
 
     # ---- phase 6: compat mode ----
-    cfg_gc = ReaderConfig(mode="compat")
-    kernels.reset_launches()
-    run_gc = decode_capture_planar(x2_gd, cfg_gc)
-    torch.cuda.synchronize()
-    got = launch_counts()
-    log(f"[compat golden] launches {got}, tuple {golden_tuple(run_gc[0])}")
-    check(golden_tuple(run_gc[0]) == GOLDEN, "compat golden tuple not reproduced on CUDA")
-    check(got == counts_of(1, build="full"), "compat golden: not one launch of gate_front's "
-                                             "full build and nothing else")
-    same_as_cpu("compat golden", run_gc, decode_capture_planar(x2_g, cfg_gc, device="cpu"))
-    cfg_bc = ReaderConfig(mode="compat", max_events=1536)
-    kernels.reset_launches()
-    st_bc, _ = decode_capture_planar(x2_b, cfg_bc)
-    torch.cuda.synchronize()
-    compat_launches = launch_counts()
-    log(f"[compat bench] launches {compat_launches}")
-    check(int(st_bc.n_epc_correct) == 640 and int(st_bc.tag_reads[27]) == 640,
-          f"compat bench decode: {int(st_bc.n_epc_correct)} EPCs, expected 640")
-    check(compat_launches == counts_of(1, build="full"),
-          "compat bench decode: gate_front's full build must run once and gate_stack not")
-    compat_ms = cuda_ms(lambda: decode_capture_planar(x2_b, cfg_bc), 7)
-    log(f"[compat bench] decode {compat_ms:.3f} ms for {n_b} samples "
-        f"({n_b / compat_ms / 1e3:.1f} Msamples/s), 640 / 640 EPCs")
-    device_profile(lambda: decode_capture_planar(x2_b, cfg_bc), top=6,
-                   label="profile compat")
+    compat = phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng)
+    compat_launches = compat["launches"]
 
     # ---- phase 7: exact_gate=True through the gate-scan kernel ----
     win_t = torch.tensor(float(win), dtype=torch.float32, device=dev)
@@ -2712,6 +2950,24 @@ def main() -> int:
          "bound_by": scan_by, "library_ms": None, "ms_read": scan_t["read"],
          "plain_ms_read": None, "library_ms_read": None,
          "launches_cli": cli_launches_exact["gate_scan"]},
+        # compat_gate: its launches are the compat bench decode's; its
+        # stream, shard and live launches beside them; its rows at bench,
+        # golden and a live window; the compat bench decode with the plain
+        # chain and with the kernel (ms in turns; device busy ms and ops).
+        {"name": "compat_gate", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/compat_gate.cu",
+         "replaces": "gen2_rfid_tpu/dsp/gate.py:92,208,245,256",
+         "launches": compat["launches"]["compat_gate"], "max_abs_err": compat["err"],
+         "ms": compat["rows"]["bench"]["ms"], "plain_ms": compat["rows"]["bench"]["plain_ms"],
+         "bound_ms": compat["rows"]["bench"]["bound_ms"],
+         "bound_by": compat["rows"]["bench"]["bound_by"],
+         "library_ms": compat["rows"]["bench"]["library_ms"],
+         "ms_read": compat["rows"]["bench"]["ms_read"],
+         "plain_ms_read": compat["rows"]["bench"]["plain_ms_read"],
+         "library_ms_read": compat["rows"]["bench"]["library_ms_read"],
+         "shapes": compat["rows"], "launches_stream": compat["stream"],
+         "launches_sharded": compat["sharded"], "launches_live": compat["live"],
+         "compat_decode_ms": compat["decode_ms"], "compat_decode_profile": compat["profile"]},
         {"name": "probe", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_gate_sums_experiment.py:116",

@@ -10,14 +10,14 @@ the stream kernel at ReaderConfig's widths, the segment kernel at any other.
 path that reads only y) and "full" (y, |y| and both windowed sums: compat
 mode and the exact gate).
 
-``keep_inputs(True)`` has gate_front and gate_stack keep, in ``kept``, a
-copy of the first input each launches its kernel on for every distinct
-shape and geometry (gate_front's geometry starts with its build), so that
-a caller can hold the kernels against their plain versions at the shapes a
-run gave them.
+``keep_inputs(True)`` has gate_front, gate_stack and compat_gate keep, in
+``kept``, a copy of the first input each launches its kernel on for every
+distinct shape and geometry (gate_front's geometry starts with its build;
+compat_gate keeps amp and avg stacked), so that a caller can hold the
+kernels against their plain versions at the shapes a run gave them.
 """
 
-launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "probe": 0}
+launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0}
 stack_bodies = {"stream": 0, "segment": 0}
 front_bodies = {"full": 0, "y": 0}
 kept = {}
@@ -38,8 +38,16 @@ def keep_inputs(on: bool) -> None:
 
 
 def keep(name: str, x, geometry: tuple) -> None:
-    """Keep a copy of ``x`` under (name, shape, *geometry) once, while on."""
+    """Keep a copy of ``x`` under (name, shape, *geometry) once, while on;
+    ``x`` a tensor, or a tuple of tensors of one shape kept stacked (the
+    copy is made only for a key not kept yet)."""
     if _keeping[0]:
-        key = (name, tuple(x.shape)) + tuple(geometry)
+        shape = (len(x),) + tuple(x[0].shape) if isinstance(x, tuple) else tuple(x.shape)
+        key = (name, shape) + tuple(geometry)
         if key not in kept:
-            kept[key] = x.clone()
+            if isinstance(x, tuple):
+                import torch
+
+                kept[key] = torch.stack(x)
+            else:
+                kept[key] = x.clone()

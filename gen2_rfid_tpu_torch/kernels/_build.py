@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gen2_rfid_tpu_torch"
-SOURCES = ("gate_front", "gate_stack", "gate_scan", "probe")
+SOURCES = ("gate_front", "gate_stack", "gate_scan", "compat_gate", "probe")
 # --fmad=false: no product is contracted into an FMA, so the kernels round as
 # their plain PyTorch versions do.  Division and sqrt keep nvcc's IEEE
 # defaults (-prec-div=true -prec-sqrt=true); no fast-math.

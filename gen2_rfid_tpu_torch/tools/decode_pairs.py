@@ -7,8 +7,9 @@ runs go in blocks of BEFORE, AFTER, AFTER, BEFORE, so that drift of the
 card or the host over a block falls on both sides alike.  Each run is a
 fresh process started in its root, which imports that root's port, builds
 its kernels, synthesizes the captures of ``CASES`` (``chip_smoke.py``'s:
-tag 27 seed 7, simulator seed 2, tiled), decodes each once and then times
-``--decodes`` decodes of each on the card (``utils.timing.cuda_ms``: the
+tag 27 seed 7, simulator seed 2, tiled; ``compat_bench`` is the bench
+capture in compat mode), decodes each once and then times ``--decodes``
+decodes of each on the card (``utils.timing.cuda_ms``: the
 median; a decode waits on the device, so that is its wall time).
 
 Prints the card's name and power limit (``nvidia-smi``) first, then one
@@ -32,6 +33,7 @@ CASES = (
     ("fm0_8msps", dict(adc_rate=8e6, decim=1, max_events=256), 20, 2),
     ("fm0_16msps", dict(adc_rate=16e6, decim=1, max_events=256), 10, 2),
     ("miller4", dict(miller_m=4, decim=1, max_events=1280), 20, 24),
+    ("compat_bench", dict(mode="compat", max_events=1536), 80, 8),
 )
 
 # One run: only what every checkout of the port has had since its native

@@ -15,6 +15,8 @@ import torch
 
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
+from gen2_rfid_tpu_torch.kernels.compat_gate import (
+    TILE, compat_cases, compat_gate, compat_gate_for_cfg, compat_gate_plain)
 from gen2_rfid_tpu_torch.kernels.gate_front import (
     BLOCK_Y, BLOCK_Y_Y, gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
@@ -29,6 +31,10 @@ from gen2_rfid_tpu_torch.tools.sweep import rows, run_twin, table_diff
 CFG = ReaderConfig()
 STACK_ARGS = (CFG.win_length, CFG.n_samples_pw // 2, CFG.n_samples_t1,
               CFG.thresh_fraction)
+
+CFG_COMPAT = ReaderConfig(mode="compat")
+CFG_COMPAT_ARGS = (CFG_COMPAT.thresh_fraction, CFG_COMPAT.n_samples_pw // 2,
+                   CFG_COMPAT.n_samples_t1, CFG_COMPAT.num_pulses_command)
 
 pytestmark = pytest.mark.cuda
 
@@ -396,6 +402,79 @@ def test_gate_scan_kernel_on_golden(cuda):
     assert torch.equal(pulses.cpu(), want_pulses)
 
 
+@pytest.mark.parametrize("tile", [32, 33, TILE])
+def test_compat_gate_kernel_on_the_cases(cuda, tile):
+    """Every input of compat_cases (ties across tiles, edges and trig0 on a
+    tile's first and last sample, the fixed point's shift across a tile
+    edge, the tail, lengths around a tile): one launch each, equal to the
+    plain version."""
+    for label, amp, avg, args in compat_cases(tile):
+        before = kernels.launches["compat_gate"]
+        trig, pulses = compat_gate(amp.to(cuda), avg.to(cuda), *args)
+        torch.cuda.synchronize()
+        assert kernels.launches["compat_gate"] == before + 1, label
+        want_trig, want_pulses = compat_gate_plain(amp, avg, *args)
+        assert trig.dtype == torch.bool and pulses.dtype == torch.int32
+        assert torch.equal(trig.cpu(), want_trig), label
+        assert torch.equal(pulses.cpu(), want_pulses), label
+
+
+@pytest.mark.parametrize("n", [9_000_001, 4_194_305, 1_940_860, 100_003, 4097, 4096, 33, 1])
+def test_compat_gate_kernel_on_drawn_decisions(cuda, n):
+    """Above, below and tied samples drawn at random, at the bench length,
+    past 1,024 tiles (the carry blocks' second and third rounds) and around
+    a tile, with small widths (frequent short rises and triggers)."""
+    amp = torch.from_numpy(np.random.default_rng(n).choice([0.0, 0.5, 1.0], n)
+                           .astype(np.float32))
+    avg = torch.ones(n)
+    for args in ((0.5, 2, 5, 3), (0.5, 0, 0, 0), CFG_COMPAT_ARGS):
+        trig, pulses = compat_gate(amp.to(cuda), avg.to(cuda), *args)
+        want_trig, want_pulses = compat_gate_plain(amp, avg, *args)
+        assert torch.equal(trig.cpu(), want_trig), args
+        assert torch.equal(pulses.cpu(), want_pulses), args
+
+
+@pytest.mark.parametrize("n", [100_003, 4000])
+def test_compat_gate_kernel_on_unaligned_input(cuda, n):
+    """amp and avg 4 bytes past a 16-byte boundary: the kernel's scalar loads
+    and stores, over several tiles and in one."""
+    amp = torch.from_numpy(np.random.default_rng(n).choice([0.0, 0.5, 1.0], n)
+                           .astype(np.float32))
+    buf = torch.empty(2 * n + 2, device=cuda)
+    a, v = buf[1:n + 1], buf[n + 2:]
+    a.copy_(amp)
+    v.fill_(1.0)
+    assert a.data_ptr() % 16 and v.data_ptr() % 16
+    trig, pulses = compat_gate(a, v, 0.5, 2, 5, 3)
+    want_trig, want_pulses = compat_gate_plain(amp, torch.ones(n), 0.5, 2, 5, 3)
+    assert torch.equal(trig.cpu(), want_trig) and torch.equal(pulses.cpu(), want_pulses)
+
+
+def test_compat_gate_kernel_on_golden(cuda):
+    """142 triggers; the compat decode on the card goes through one launch of
+    gate_front's full build and one of compat_gate, equal to the CPU decode."""
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.sim.trace import golden_trace
+
+    c = ReaderConfig(mode="compat")
+    x2 = to_planar(golden_trace(c).iq)
+    _, amp, avgsum, _ = gate_front_for_cfg(x2, c)
+    avg = avgsum / torch.tensor(float(c.win_length))
+    trig, pulses = compat_gate_for_cfg(amp.to(cuda), avg.to(cuda), c)
+    want_trig, want_pulses = compat_gate_for_cfg(amp, avg, c)
+    assert int(want_trig.sum()) == 142
+    assert torch.equal(trig.cpu(), want_trig) and torch.equal(pulses.cpu(), want_pulses)
+    before = dict(kernels.launches)
+    st, dec = decode_capture_planar(x2.to(cuda), c)
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - before[k] for k in before} == {
+        "gate_front": 1, "gate_stack": 0, "gate_scan": 0, "compat_gate": 1, "probe": 0}
+    st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
+    _same_int_fields(dec, dec_c)
+    _same_int_fields(st, st_c)
+
+
 @pytest.mark.parametrize("shape", [(8, 128), (1,), (3, 7), (1 << 20,)])
 def test_probe_kernel_matches_plain(cuda, shape):
     x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(cuda)
@@ -547,7 +626,7 @@ def test_mrc_decode_on_card(cuda):
     st, dec, h = decode_capture_mrc_full(iqs, cfg)
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 2, "gate_stack": 0, "gate_scan": 0, "probe": 0}
+        "gate_front": 2, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0}
     assert int(st.n_epc_correct) == 4
     st_c, dec_c, h_c = decode_capture_mrc_full(iqs, cfg, device="cpu")
     _same_int_fields(st, st_c)
@@ -635,7 +714,7 @@ def test_cli_decode_on_card(cuda, tmp_path, capsys):
     assert main(["decode", path]) == 0
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 1, "gate_stack": 1, "gate_scan": 0, "probe": 0}
+        "gate_front": 1, "gate_stack": 1, "gate_scan": 0, "compat_gate": 0, "probe": 0}
     lines = capsys.readouterr().out.splitlines()
     for want in ("| Number of queries/queryreps sent : 71", "| Current Inventory round : 72",
                  "| Correctly decoded EPC : 70", "| Tag ID : 1b  Num of reads : 70"):
@@ -682,7 +761,7 @@ def test_live_inventory_on_card(cuda):
     torch.cuda.synchronize()
     n_dec = len(decodes.calls)
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "probe": 0}
+        "gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "compat_gate": 0, "probe": 0}
     reader_c, channel_c, _ = build_scene("sic_pair", device="cpu")
     assert integer_fields(st) == integer_fields(reader_c.run_inventory(channel_c, n_rounds))
     assert (st.n_epc_correct, st.n_epc_sic_second) == (6, 3)
@@ -709,7 +788,7 @@ def test_sharded_decode_on_card(cuda, mode):
     """A 4-shard decode on a mesh of the card equals the same decode on a
     mesh of the CPU: every int/bool field of the joined tables and of the
     stats, through one gate_front (and, native, one gate_stack) launch a
-    shard."""
+    shard (compat: one compat_gate launch a shard)."""
     from gen2_rfid_tpu_torch.shard.decode_sharded import decode_capture_sharded
     from gen2_rfid_tpu_torch.shard.mesh import make_mesh
     from gen2_rfid_tpu_torch.sim.tag import Tag
@@ -722,7 +801,8 @@ def test_sharded_decode_on_card(cuda, mode):
     st, dec = decode_capture_sharded(iq, cfg, make_mesh(4, devices=[cuda] * 4))
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 4, "gate_stack": 4 if mode == "native" else 0, "gate_scan": 0, "probe": 0}
+        "gate_front": 4, "gate_stack": 4 if mode == "native" else 0, "gate_scan": 0,
+        "compat_gate": 4 if mode == "compat" else 0, "probe": 0}
     st_c, dec_c = decode_capture_sharded(iq, cfg, make_mesh(4, devices=["cpu"] * 4))
     for f in dec._fields:
         a = getattr(dec, f).cpu()

@@ -33,5 +33,8 @@ def test_cases_are_chip_smokes_captures():
     for name, kw, rounds, tiles in CASES:
         if name in high:
             assert (kw, rounds, tiles) == (*high[name], 2)
+        elif name == "compat_bench":
+            assert kw == {"mode": "compat", "max_events": 1536}
+            assert (rounds, tiles) == (chip_smoke.BENCH_ROUNDS, chip_smoke.BENCH_TILES)
         else:
             assert kw == miller[name][1] and tiles == miller[name][2]

@@ -30,6 +30,7 @@ from gen2_rfid_tpu.sim.trace import golden_trace as ref_golden_trace
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
 from gen2_rfid_tpu_torch.kernels import _build
+from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate_for_cfg
 from gen2_rfid_tpu_torch.kernels.gate_front import (
     gate_front,
     gate_front_for_cfg,
@@ -181,9 +182,10 @@ def test_cpu_tensors_count_no_launches(golden_y2):
     gate_stack_flags(golden_y2[:, :5000].contiguous(), *STACK_ARGS)
     amp = torch.ones(1000)
     gate_scan_for_cfg(amp, amp, CFG)
+    compat_gate_for_cfg(amp, amp, CFG)
     probe(torch.zeros((8, 128)))
     assert kernels.launches == {"gate_front": 0, "gate_stack": 0, "gate_scan": 0,
-                                "probe": 0}
+                                "compat_gate": 0, "probe": 0}
 
 
 def test_keeping_inputs_on_the_cpu_keeps_and_counts_nothing(golden_y2):
