@@ -63,13 +63,18 @@ then:
    decode), the bench capture at n_time 8 (equal to its single decode) and
    a 3-round live loop (equal to its CPU run), each gate through one
    compat_gate launch; compat_gate bit-equal to its plain version at
-   golden (also 4 bytes past a 16-byte boundary), bench, a drawn input
-   past 2 x 1,024 tiles and every input of
-   ``kernels/compat_gate.py::compat_cases`` at tiles 32, 33 and 4,096, its
+   golden (also 4 bytes past a 16-byte boundary), bench, fm0_16msps
+   (gate_front's full build of phase 16's capture) and every input of
+   ``kernels/compat_gate.py::compat_cases`` at tiles 32, 33 and its model's
+   default, every configuration on a drawn input past 1,024 of its tiles,
+   200 launches on a drawn input of the bench length the same bits, its
    tile model equal to it at golden and bench; compat_gate timed at bench,
-   golden and a live window beside its bound, its plain version and one
-   ``torch.cummax`` of an int32 row; the bench decode with the kernel and
-   with the plain chain swapped in, in turns, timed and profiled;
+   golden, a live window and fm0_16msps beside its bound, its plain version
+   and one ``torch.cummax`` of an int32 row, one device op a call by the
+   profiler, its configurations swept at each shape and on both sides of
+   the wrapper's cuts (bench prefixes, FM0 at 4 and 8 Msps); the bench decode with
+   the kernel and with the plain chain swapped in, in turns, timed and
+   profiled;
 7. ``exact_gate=True``: the gate-scan kernel against its plain version
    (golden |y| and average, the bench shape, noise, dense edges at lengths
    that are not multiples of 32 or 1024, ties, random runs, and synthetic
@@ -215,8 +220,10 @@ stream kernel there, the segment kernel under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
 Miller shapes and 8 and 16 Msps under ``shapes``); ``compat_gate`` (its
 launches the compat bench decode's, its stream, shard and live launches,
-its bench, golden and live-window rows under ``shapes``, the compat bench
-decode's ms and profile with the plain chain and with the kernel), the
+its ``design``, ``kernels_a_call``, ``tile`` and ``config`` at bench, its
+bench, golden, live-window and fm0_16msps rows under ``shapes`` and its
+configuration sweep under ``sweep``, the compat bench decode's ms and
+profile with the plain chain and with the kernel), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
@@ -2161,27 +2168,55 @@ def compat_row(label, amp, avg, args, both, fmt, reps=20, plain_reps=5):
     (amp and avg in, trig and pulses_at out: 13 bytes a sample; a multiply
     and two compares), its plain version on the card and one
     ``torch.cummax`` of an int32 row of the same length (the library call
-    each of the plain version's scans is), and its passes' device time from
-    ``torch.profiler``.  Returns the row."""
+    each of the plain version's scans is), and the device ops of a call from
+    ``torch.profiler``, which must be its one kernel.  Returns the row, with
+    the configuration the wrapper chose and its tile."""
     import torch
 
-    from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate, compat_gate_plain
+    from gen2_rfid_tpu_torch.kernels.compat_gate import (
+        choose_config, compat_gate, compat_gate_plain, config_tile)
 
     n = amp.shape[0]
+    config = choose_config(n, args[2])
     idx = torch.where(amp > avg * args[0], torch.arange(n, dtype=torch.int32, device=amp.device),
                       -1).to(torch.int32)
     t = both(lambda: compat_gate(amp, avg, *args), reps)
     pt = both(lambda: compat_gate_plain(amp, avg, *args), plain_reps)
     lt = both(lambda: torch.cummax(idx, 0), plain_reps)
     b, by = bound(13 * n, 3 * n)
-    device_profile(lambda: compat_gate(amp, avg, *args), reps=20, top=8,
-                   label=f"profile compat_gate {label}", unit="call")
-    log(f"[time] {label} compat_gate n={n}: {fmt(t)}, bound {b:.6f} ms ({by}), "
+    prof = device_profile(lambda: compat_gate(amp, avg, *args), reps=20, top=8,
+                          label=f"profile compat_gate {label}", unit="call")
+    ops = sum(r[1] for r in prof) // 20 if prof else None
+    check(ops == 1, f"compat_gate at {label}: {ops} device ops a call, not its one kernel")
+    log(f"[time] {label} compat_gate n={n} (configuration {config}, tile "
+        f"{config_tile(config)}): {fmt(t)}, bound {b:.6f} ms ({by}), "
         f"{100 * b / t['read']:.1f}% of the read time; plain {fmt(pt)}; torch.cummax of an "
-        f"int32 row {fmt(lt)}")
+        f"int32 row {fmt(lt)}; {ops} device op a call")
     return {"n": n, "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
             "share_read": b / t["read"], "plain_ms": pt["write"], "plain_ms_read": pt["read"],
-            "library_ms": lt["write"], "library_ms_read": lt["read"]}
+            "library_ms": lt["write"], "library_ms_read": lt["read"], "kernels_a_call": ops,
+            "config": config, "tile": config_tile(config)}
+
+
+def compat_sweep(shapes, both):
+    """compat_gate's configurations (threads a block, words a thread) timed
+    at each shape, read flush (ms): {shape: {tile "TxW": ms}}, with the
+    fastest and the wrapper's choice logged."""
+    from gen2_rfid_tpu_torch.kernels.compat_gate import CONFIGS, choose_config, compat_gate
+
+    out = {}
+    for label, (amp, avg, args) in shapes.items():
+        row = {}
+        for config, (threads, words) in enumerate(CONFIGS):
+            row[f"{threads}x{words}"] = both(
+                lambda: compat_gate(amp, avg, *args, config=config), 20)["read"]
+        best = min(row, key=row.get)
+        chosen = "{}x{}".format(*CONFIGS[choose_config(amp.shape[0], args[2])])
+        log(f"[compat_gate sweep] {label} n={amp.shape[0]}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()) + f" ms (read); fastest {best}, "
+            f"the wrapper's {chosen} {row[chosen]:.4f}")
+        out[label] = row
+    return out
 
 
 def profile_summary(rows, reps):
@@ -2196,26 +2231,30 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
     to the batch decode), the bench capture at n_time 8 (equal to its single
     decode) and a live loop (equal to its CPU run), each gate through one
     compat_gate launch; compat_gate bit-equal to its plain version at
-    golden (also 4 bytes past a 16-byte boundary), bench, an input of
-    2 x 1,024 tiles and 3 samples drawn at random and every input of
-    ``compat_cases`` at tiles of 32, 33 and its own, its tile model equal to
-    it at golden and bench; its time beside its bound, its plain version
-    and ``torch.cummax``; the bench decode with the kernel and with the
-    plain chain, in turns, timed and profiled.  Returns the numbers for the
-    kernels line."""
+    golden (also 4 bytes past a 16-byte boundary), bench, fm0_16msps and
+    every input of ``compat_cases`` at tiles of 32, 33 and the model's
+    default, every configuration on an input drawn at random past 1,024 of
+    its tiles, 200 launches alike, its tile model equal to it at golden and
+    bench; its time beside its bound, its plain version and
+    ``torch.cummax``, one device op a call, its configurations swept there
+    and around the wrapper's cuts; the
+    bench decode with the kernel and with the plain chain, in turns, timed
+    and profiled.  Returns the numbers for the kernels line."""
     import numpy as np
     import torch
 
     from gen2_rfid_tpu_torch import kernels
     from gen2_rfid_tpu_torch.config import ReaderConfig
     from gen2_rfid_tpu_torch.kernels.compat_gate import (
-        TILE, _lib, compat_cases, compat_gate, compat_gate_plain, compat_gate_tiles_plain)
+        CONFIGS, TILE, _lib, compat_cases, compat_gate, compat_gate_plain,
+        compat_gate_tiles_plain, config_tile)
     from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
     from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
     from gen2_rfid_tpu_torch.runtime.live import LiveReader
     from gen2_rfid_tpu_torch.runtime.stream import StreamDecoder
     from gen2_rfid_tpu_torch.sim.channel import SimTagChannel
     from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
     from gen2_rfid_tpu_torch.tools.live_scenes import DecodeLog, integer_fields
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
@@ -2286,24 +2325,39 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
                 if name == "compat_gate" and shape[1] <= TILE), key=lambda x: x.shape[1])
 
     # The kernel against its plain version on the card, and its tile model.
-    check(_lib().compat_gate_tile() == TILE, "compat_gate's tile differs from its model's")
+    lib = _lib()
+    check([lib.compat_gate_tile(i) for i in range(lib.compat_gate_configs())]
+          == [config_tile(i) for i in range(len(CONFIGS))],
+          "compat_gate's configurations differ from the wrapper's")
     win = torch.tensor(float(cfg_gc.win_length), device=dev)
     args = (cfg_gc.thresh_fraction, cfg_gc.n_samples_pw // 2, cfg_gc.n_samples_t1,
             cfg_gc.num_pulses_command)
     _, amp_g, s_g, _ = gate_front_for_cfg(x2_gd, cfg_gc)
     _, amp_b, s_b, _ = gate_front_for_cfg(x2_b, cfg_bc)
     amp_g, avg_g, amp_b, avg_b = amp_g, s_g / win, amp_b, s_b / win
-    # Drawn decisions at 2 x 1,024 tiles + 3 samples: the carry blocks take
-    # the tiles in three rounds of 1,024.
-    n_d = 2 * 1024 * TILE + 3
-    drawn = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], n_d).astype(np.float32))
-    # The golden input 4 bytes past a 16-byte boundary: scalar loads.
+    # The fm0_16msps capture (phase 16's) through gate_front's full build:
+    # a T1 window of 3,840 samples, the halo's widest.
+    _, kw16, rounds16 = HIGH_RATES[1]
+    c16 = ReaderConfig(**kw16)
+    tr16 = synthesize_inventory(c16, [Tag.with_id(27, seed=7)], n_rounds=rounds16, seed=2)
+    x2_16 = to_planar(np.concatenate([tr16.iq] * 2)).to(dev)
+    _, amp_16, s_16, _ = gate_front_for_cfg(x2_16, c16)
+    avg_16 = s_16 / torch.tensor(float(c16.win_length), device=dev)
+    args16 = (c16.thresh_fraction, c16.n_samples_pw // 2, c16.n_samples_t1,
+              c16.num_pulses_command)
+    del x2_16
+    # Drawn decisions past 1,024 tiles of the widest configuration: every
+    # configuration looks back over windows of 256 tiles, in rounds.
+    n_d = 1024 * max(config_tile(i) for i in range(len(CONFIGS))) + 3
+    drawn = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], n_d).astype(np.float32)).to(dev)
+    ones_d = torch.ones(n_d, device=dev)
+    # The golden input 4 bytes past a 16-byte boundary.
     buf = torch.empty(2 * amp_g.numel() + 2, device=dev)
     amp_u, avg_u = buf[1:amp_g.numel() + 1], buf[amp_g.numel() + 2:]
     amp_u.copy_(amp_g)
     avg_u.copy_(avg_g)
     inputs = [("golden", amp_g, avg_g, args), ("bench", amp_b, avg_b, args),
-              (f"drawn n={n_d}", drawn, torch.ones(n_d), (0.5, 2, 5, 3)),
+              ("fm0_16msps", amp_16, avg_16, args16),
               ("golden 4 bytes past 16", amp_u, avg_u, args)]
     for tile in (32, 33, TILE):
         inputs += [(f"{label} (tile {tile})", *rest) for label, *rest in compat_cases(tile)]
@@ -2324,15 +2378,52 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
                   f"compat_gate's tile model differs from the kernel on {label}")
             log(f"[compat_gate {label}] kernel == plain == tile model, n={amp.numel()}, "
                 f"{int(want_t.sum())} triggers")
+    # Every configuration on the drawn input, and 200 launches of the
+    # wrapper's on a drawn input of the bench length: the same bits each time.
+    want_t, want_p = compat_gate_plain(drawn, ones_d, 0.5, 2, 5, 3)
+    for config in range(len(CONFIGS)):
+        trig, pulses = compat_gate(drawn, ones_d, 0.5, 2, 5, 3, config=config)
+        n_bad = int((trig != want_t).sum()) + int((pulses != want_p).sum())
+        check(n_bad == 0, f"compat_gate configuration {config} differs from its plain version "
+                          f"on {n_d} drawn samples: {n_bad} outputs")
+    n_r = amp_b.numel()
+    rep_amp, rep_avg = drawn[:n_r].contiguous(), ones_d[:n_r]
+    want_t, want_p = compat_gate_plain(rep_amp, rep_avg, 0.5, 2, 5, 3)
+    n_bad = 0
+    for _ in range(200):
+        trig, pulses = compat_gate(rep_amp, rep_avg, 0.5, 2, 5, 3)
+        n_bad += int((trig != want_t).sum()) + int((pulses != want_p).sum())
+    check(n_bad == 0, f"compat_gate: 200 launches at n={n_r} differ from the plain version "
+                      f"in {n_bad} outputs")
+    del drawn, ones_d, want_t, want_p
     log(f"[compat_gate] bit-equal to its plain version on {len(inputs)} inputs "
-        f"({n_trig} triggers): golden (also 4 bytes past 16), bench, a drawn input of "
-        f"{n_d} samples and compat_cases at tiles 32, 33 and {TILE}")
+        f"({n_trig} triggers): golden (also 4 bytes past 16), bench, fm0_16msps and "
+        f"compat_cases at tiles 32, 33 and {TILE}; every configuration on {n_d} drawn "
+        f"samples; 200 launches at n={n_r} the same bits")
 
-    # Times: bench, golden and the largest live window.
-    rows = {"bench": compat_row("bench", amp_b, avg_b, args, both, fmt),
-            "golden": compat_row("golden", amp_g, avg_g, args, both, fmt),
-            "live": compat_row("live window", live[0], live[1], args, both, fmt, reps=50)}
-    del amp_g, avg_g, amp_b, avg_b, s_g, s_b
+    # Times: bench, golden, the largest live window and fm0_16msps; the
+    # configurations swept at each.
+    shapes = {"bench": (amp_b, avg_b, args), "golden": (amp_g, avg_g, args),
+              "live": (live[0], live[1], args), "fm0_16msps": (amp_16, avg_16, args16)}
+    rows = {label: compat_row("live window" if label == "live" else label, *shape, both, fmt,
+                              reps=50 if label == "live" else 20)
+            for label, shape in shapes.items()}
+    sweep = compat_sweep(shapes, both)
+    # Around choose_config's cuts: bench prefixes on both sides of 2^20
+    # samples at nt1 96, and FM0 captures at 4 and 8 Msps, decim 1 (nt1 960
+    # and 1,920, on both sides of 1,024; 20 rounds tiled twice).
+    cuts = {f"bench[:{m}]": (amp_b[:m].contiguous(), avg_b[:m].contiguous(), args)
+            for m in (1 << 19, 1 << 20, 3 << 19)}
+    for label, kw in (("fm0_4msps", dict(adc_rate=4e6, decim=1, max_events=256)),
+                      HIGH_RATES[0][:2]):
+        ck = ReaderConfig(**kw)
+        trk = synthesize_inventory(ck, [Tag.with_id(27, seed=7)], n_rounds=20, seed=2)
+        _, amp_k, s_k, _ = gate_front_for_cfg(to_planar(np.concatenate([trk.iq] * 2)).to(dev), ck)
+        cuts[label] = (amp_k, s_k / torch.tensor(float(ck.win_length), device=dev),
+                       (ck.thresh_fraction, ck.n_samples_pw // 2, ck.n_samples_t1,
+                        ck.num_pulses_command))
+    sweep.update(compat_sweep(cuts, both))
+    del amp_g, avg_g, amp_b, avg_b, s_g, s_b, amp_16, avg_16, s_16, shapes, cuts
 
     # The bench decode with the kernel and with the plain chain, in turns.
     decode_ms = {"plain_chain": [], "kernel": []}
@@ -2356,7 +2447,8 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
         lambda: decode_capture_planar(x2_b, cfg_bc), top=8, label="profile compat"), 3)
     return {"launches": compat_launches, "stream": stream_launches["compat_gate"],
             "sharded": shard_launches["compat_gate"], "live": live_launches["compat_gate"],
-            "err": err, "rows": rows, "decode_ms": decode_ms, "profile": profile}
+            "err": err, "rows": rows, "sweep": sweep, "decode_ms": decode_ms,
+            "profile": profile}
 
 
 def main() -> int:
@@ -2951,9 +3043,11 @@ def main() -> int:
          "plain_ms_read": None, "library_ms_read": None,
          "launches_cli": cli_launches_exact["gate_scan"]},
         # compat_gate: its launches are the compat bench decode's; its
-        # stream, shard and live launches beside them; its rows at bench,
-        # golden and a live window; the compat bench decode with the plain
-        # chain and with the kernel (ms in turns; device busy ms and ops).
+        # stream, shard and live launches beside them; its design, device
+        # kernels a call and tile at bench; its rows at bench, golden, a live
+        # window and fm0_16msps, and its configurations swept there; the
+        # compat bench decode with the plain chain and with the kernel (ms in
+        # turns; device busy ms and ops).
         {"name": "compat_gate", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/compat_gate.cu",
          "replaces": "gen2_rfid_tpu/dsp/gate.py:92,208,245,256",
@@ -2965,6 +3059,12 @@ def main() -> int:
          "ms_read": compat["rows"]["bench"]["ms_read"],
          "plain_ms_read": compat["rows"]["bench"]["plain_ms_read"],
          "library_ms_read": compat["rows"]["bench"]["library_ms_read"],
+         "design": "one launch: a single-pass scan of 20-word carry descriptors with "
+                   "decoupled look-back (ticketed tiles, epoch-tagged statuses, the launch "
+                   "state kept in its scratch, a halo of nt1 + 1 samples)",
+         "kernels_a_call": compat["rows"]["bench"]["kernels_a_call"],
+         "tile": compat["rows"]["bench"]["tile"], "config": compat["rows"]["bench"]["config"],
+         "sweep": compat["sweep"],
          "shapes": compat["rows"], "launches_stream": compat["stream"],
          "launches_sharded": compat["sharded"], "launches_live": compat["live"],
          "compat_decode_ms": compat["decode_ms"], "compat_decode_profile": compat["profile"]},

@@ -1,20 +1,31 @@
 """The compat-gate kernel's CPU side: its tile model and its plain version.
 
-* ``compat_gate_tiles_plain``, the PyTorch model of the kernel's tiles and
-  carries (kernels/compat_gate.py), equals ``compat_gate_plain`` exactly on
-  the golden trace's |y| and average and on every constructed input of
-  ``compat_cases``, at tiles of 32, 33 and the kernel's 4,096.  Every output
-  is an integer or a bool: no tolerance.
+* ``compat_gate_tiles_plain``, the PyTorch model of the kernel's
+  descriptors, halo and look-back (kernels/compat_gate.py), equals
+  ``compat_gate_plain`` exactly on the golden trace's |y| and average and on
+  every constructed input of ``compat_cases``, at tiles of 32, 33 and the
+  kernel's own.  Every output is an integer or a bool: no tolerance.
+* The descriptors' combine is associative, folding it over a split span
+  gives the span's own descriptor, a look-back over any number of
+  aggregates gives the carry of the exclusive scan, and a capture of one
+  tile gets the same words' carries from its scans of the carry's parts
+  (hypothesis).  A rise whose next below sample lies nt1 + 1 or nt1 + 2
+  samples on across a tile edge is quiet only at nt1 + 2, in the model as
+  in the plain version.
 * ``compat_gate_plain``, through the port's compat ``gate_detect``, gives the
   JAX package's compat event table (``gate_detect`` jitted whole) on the
   golden scene with exact ties put in, alone and in runs.
 * The wrapper on CPU tensors runs the plain version, counts no launch and
-  keeps nothing; it rejects other shapes and devices.
+  keeps nothing; it rejects other shapes and devices.  ``choose_config``
+  picks the configurations the card's sweep found, and the trace tool
+  (``tools/compat_gate_trace.py``) exits 2 without a card.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -180,6 +191,25 @@ def test_wrapper_rejects_other_shapes_and_devices():
         cg.compat_gate(meta, meta, *args)
 
 
+@pytest.mark.parametrize("n,nt1,want", [
+    (1, 96, 1), (cg.TILE, 96, 1), (cg.TILE + 1, 96, 0), (215_542, 96, 0), (1 << 19, 96, 1),
+    (96 * 8192 - 1, 96, 1), (96 * 8192, 96, 2), (1 << 20, 96, 2), (1_940_860, 96, 2),
+    (cg.TILE, 3840, 1), (1_248_504, 960, 2), (2_497_008, 1920, 3), (2_585_440, 3840, 3)])
+def test_choose_config(n, nt1, want):
+    """One tile of 128 threads for a live window, then by T1 window and by
+    the tiles a length gives (the card's sweep); every choice is one of
+    CONFIGS."""
+    assert cg.choose_config(n, nt1) == want
+    assert 0 <= want < len(cg.CONFIGS)
+
+
+def test_trace_tool_needs_cuda(monkeypatch):
+    from gen2_rfid_tpu_torch.tools import compat_gate_trace
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert compat_gate_trace.main([]) == 2
+
+
 @pytest.mark.parametrize("n", [0, 1, 2])
 def test_tiny_inputs(n):
     amp = torch.ones(n)
@@ -187,3 +217,96 @@ def test_tiny_inputs(n):
         got = cg.compat_gate_tiles_plain(amp, amp, 0.5, 2, 5, 3, tile=tile)
         want = cg.compat_gate_plain(amp, amp, 0.5, 2, 5, 3)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# Runs of one decision (+1 above, -1 below, 0 tie) with whether a rise in
+# the run would be a candidate, and where the span is cut.
+RUNS = st.lists(st.tuples(st.sampled_from([-1, 0, 1]), st.integers(1, 5), st.booleans()),
+                min_size=1, max_size=14)
+
+
+def _span(runs, offset):
+    dec = torch.tensor([d for d, k, _ in runs for _ in range(k)], dtype=torch.int64)
+    cand = torch.tensor([c for _, k, c in runs for _ in range(k)])
+    return dec, torch.arange(dec.numel(), dtype=torch.int64) + offset, cand
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(runs=RUNS, cuts=st.lists(st.integers(1, 80), min_size=2, max_size=4),
+       pw_half=st.integers(0, 6), npc=st.integers(-1, 4), offset=st.integers(0, 30))
+def test_descriptor_combine_is_associative_and_folds_a_split(runs, cuts, pw_half, npc, offset):
+    dec, gi, cand = _span(runs, offset)
+    n = dec.numel()
+    cuts = sorted({c % n for c in cuts} - {0})
+    bounds = [0] + cuts + [n]
+    parts = [cg.span_descriptors(dec[a:b], gi[a:b], cand[a:b], pw_half, npc)
+             for a, b in zip(bounds, bounds[1:])]
+    whole = cg.span_descriptors(dec, gi, cand, pw_half, npc)
+    # Folding over the split, in any grouping, gives the span's descriptor.
+    assert torch.equal(cg.desc_scan(torch.stack(parts), 0)[-1], whole)
+    left = parts[0]
+    for p in parts[1:]:
+        left = cg.desc_compose(left, p)
+    right = parts[-1]
+    for p in reversed(parts[:-1]):
+        right = cg.desc_compose(p, right)
+    assert torch.equal(left, whole) and torch.equal(right, whole)
+    if len(parts) >= 3:
+        a, b, c = parts[0], parts[1], cg.desc_scan(torch.stack(parts[2:]), 0)[-1]
+        assert torch.equal(cg.desc_compose(cg.desc_compose(a, b), c),
+                           cg.desc_compose(a, cg.desc_compose(b, c)))
+    # The identity is neutral.
+    ident = cg.desc_identity()
+    assert torch.equal(cg.desc_compose(ident, whole), whole)
+    assert torch.equal(cg.desc_compose(whole, ident), whole)
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(runs=RUNS, ntiles=st.integers(1, 12), lags=st.lists(st.integers(0, 3), min_size=12,
+                                                            max_size=12),
+       pw_half=st.integers(0, 4), npc=st.integers(0, 3))
+def test_look_back_gives_the_exclusive_scan(runs, ntiles, lags, pw_half, npc):
+    """Whatever number of aggregates a tile composes before it meets an
+    inclusive carry, it gets the carry of the exclusive scan."""
+    dec, gi, cand = _span(runs * ntiles, 0)
+    cut = torch.linspace(0, dec.numel(), ntiles + 1).long().tolist()
+    tiles = torch.stack([cg.span_descriptors(dec[a:b], gi[a:b], cand[a:b], pw_half, npc)
+                         if b > a else cg.desc_identity() for a, b in zip(cut, cut[1:])])
+    c0 = torch.tensor(cg.CARRY0).expand(ntiles, 5)
+    want = cg.desc_apply(cg.desc_scan(tiles, 0, exclusive=True), c0)
+    assert torch.equal(cg.look_back_carries(tiles, torch.tensor(lags[:ntiles])), want)
+    assert torch.equal(cg.look_back_carries(tiles, torch.zeros(ntiles, dtype=torch.int64)), want)
+
+
+@pytest.mark.parametrize("tile", [32, 33])
+@pytest.mark.parametrize("gap", [1, 2])
+def test_halo_next_below_across_a_tile_edge(tile, gap):
+    """A rise 3 samples before a tile's end whose next below sample lies
+    nt1 + gap on, in the next tile: T1-quiet (a trigger) only at gap 2."""
+    frac, pw_half, nt1, npc = 0.5, 2, 5, 0
+    rise = 2 * tile - 3
+    amp = torch.ones(rise + nt1 + 40)
+    amp[rise - 4: rise] = 0.0                 # a long low run, then the rise
+    amp[rise + nt1 + gap] = 0.0
+    avg = torch.ones_like(amp)
+    want = cg.compat_gate_plain(amp, avg, frac, pw_half, nt1, npc)
+    got = cg.compat_gate_tiles_plain(amp, avg, frac, pw_half, nt1, npc, tile=tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[0][rise]) == (gap == 2)
+    assert rise // tile != (rise + nt1 + gap) // tile
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(runs=RUNS, reps=st.integers(1, 6), pw_half=st.integers(0, 6), npc=st.integers(-1, 3))
+def test_one_tile_carries_equal_the_descriptor_scan(runs, reps, pw_half, npc):
+    """The one-tile launch's words' carries (two scans of the carry's
+    parts) equal those of the descriptor scan from the capture's start."""
+    dec, gi, cand = _span(runs * reps, 0)
+    pad = -dec.numel() % cg.WORD
+    dec, cand = torch.cat([dec, dec.new_zeros(pad)]), torch.cat([cand, cand.new_zeros(pad)])
+    gi = torch.arange(dec.numel(), dtype=torch.int64)
+    d, g, c = (x.reshape(-1, cg.WORD) for x in (dec, gi, cand))
+    words = cg.span_descriptors(d, g, c, pw_half, npc)
+    want = cg.desc_apply(cg.desc_scan(words, 0, exclusive=True),
+                         torch.tensor(cg.CARRY0).expand(d.shape[0], 5))
+    assert torch.equal(cg.one_tile_carries(d, g, c, pw_half, npc), want)

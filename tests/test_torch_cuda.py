@@ -16,7 +16,8 @@ import torch
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
 from gen2_rfid_tpu_torch.kernels.compat_gate import (
-    TILE, compat_cases, compat_gate, compat_gate_for_cfg, compat_gate_plain)
+    CONFIGS, TILE, compat_cases, compat_gate, compat_gate_for_cfg, compat_gate_plain,
+    config_tile)
 from gen2_rfid_tpu_torch.kernels.gate_front import (
     BLOCK_Y, BLOCK_Y_Y, gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
@@ -422,8 +423,9 @@ def test_compat_gate_kernel_on_the_cases(cuda, tile):
 @pytest.mark.parametrize("n", [9_000_001, 4_194_305, 1_940_860, 100_003, 4097, 4096, 33, 1])
 def test_compat_gate_kernel_on_drawn_decisions(cuda, n):
     """Above, below and tied samples drawn at random, at the bench length,
-    past 1,024 tiles (the carry blocks' second and third rounds) and around
-    a tile, with small widths (frequent short rises and triggers)."""
+    past 1,024 tiles (look-back windows of 256 predecessors, several
+    rounds) and around a tile, with small widths (frequent short rises and
+    triggers)."""
     amp = torch.from_numpy(np.random.default_rng(n).choice([0.0, 0.5, 1.0], n)
                            .astype(np.float32))
     avg = torch.ones(n)
@@ -434,10 +436,94 @@ def test_compat_gate_kernel_on_drawn_decisions(cuda, n):
         assert torch.equal(pulses.cpu(), want_pulses), args
 
 
+@pytest.mark.parametrize("config", range(len(CONFIGS)))
+def test_compat_gate_every_config(cuda, config):
+    """Each configuration of the kernel on every input of compat_cases at
+    its own tile, on drawn decisions past 1,024 of its tiles and around a
+    tile, and at the 16 Msps widths (nt1 3,840)."""
+    tile = config_tile(config)
+    inputs = [(label, amp, avg, args) for label, amp, avg, args in compat_cases(tile)]
+    for n in (1024 * tile + 5, 3 * tile + 1, tile, 77):
+        amp = torch.from_numpy(np.random.default_rng(n).choice([0.0, 0.5, 1.0], n)
+                               .astype(np.float32))
+        inputs += [(f"drawn n={n} {args}", amp, torch.ones(n), args)
+                   for args in ((0.5, 2, 5, 3), (0.5, 96, 3840, 5))]
+    for label, amp, avg, args in inputs:
+        a, v = amp.to(cuda), avg.to(cuda)
+        trig, pulses = compat_gate(a, v, *args, config=config)
+        want_trig, want_pulses = compat_gate_plain(a, v, *args)
+        assert torch.equal(trig, want_trig), label
+        assert torch.equal(pulses, want_pulses), label
+
+
+@pytest.mark.parametrize("config", range(len(CONFIGS)))
+def test_compat_gate_kernel_repeats_bit_for_bit(cuda, config):
+    """200 launches on one drawn input of the bench length give the same bits
+    each time (a look-back that read a carry too early would not)."""
+    n = 1_940_860
+    amp = torch.from_numpy(np.random.default_rng(5).choice([0.0, 0.5, 1.0], n, p=[0.3, 0.1, 0.6])
+                           .astype(np.float32)).to(cuda)
+    avg = torch.ones(n, device=cuda)
+    want_trig, want_pulses = compat_gate_plain(amp, avg, 0.5, 2, 5, 3)
+    bad = 0
+    for _ in range(200):
+        trig, pulses = compat_gate(amp, avg, 0.5, 2, 5, 3, config=config)
+        bad += int((trig != want_trig).sum()) + int((pulses != want_pulses).sum())
+    assert bad == 0
+
+
+def _drawn_decisions(n, seed):
+    return torch.from_numpy(np.random.default_rng(seed).choice([0.0, 0.5, 1.0], n)
+                            .astype(np.float32))
+
+
+def test_compat_gate_graph_replays(cuda):
+    """A launch captured in a CUDA graph and replayed on new inputs gives the
+    plain version's bits each time (the kernel keeps its per-launch state in
+    its scratch, so the captured arguments serve every replay)."""
+    n = 1_940_860
+    stream = torch.cuda.Stream()
+    amp, avg = _drawn_decisions(n, 0).to(cuda), torch.ones(n, device=cuda)
+    with torch.cuda.stream(stream):
+        compat_gate(amp, avg, 0.5, 2, 5, 3)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        trig, pulses = compat_gate(amp, avg, 0.5, 2, 5, 3)
+    for seed in range(1, 6):
+        amp.copy_(_drawn_decisions(n, seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_trig, want_pulses = compat_gate_plain(amp, avg, 0.5, 2, 5, 3)
+        assert torch.equal(trig, want_trig) and torch.equal(pulses, want_pulses), seed
+
+
+def test_compat_gate_epochs_past_32_bits(cuda):
+    """Launches whose epochs lie past 2^32 read none of the statuses that a
+    launch of epoch 1 left (epochs cut to 32 bits would), and each moves the
+    launch word on by one launch."""
+    from gen2_rfid_tpu_torch.kernels import compat_gate as cg
+
+    n = 300_001
+    stream = torch.cuda.Stream()
+    first, second = _drawn_decisions(n, 1).to(cuda), _drawn_decisions(n, 2).to(cuda)
+    avg = torch.ones(n, device=cuda)
+    with torch.cuda.stream(stream):
+        got = [compat_gate(first, avg, 0.5, 2, 5, 3)]          # epoch 1
+        word = cg._scratch[(first.device.index, stream.cuda_stream)][0].view(torch.int64)
+        word[0] = (1 << 32) << cg.TICKET_BITS                 # then epochs 2^32 + 1, + 2
+        got += [compat_gate(second, avg, 0.5, 2, 5, 3) for _ in range(2)]
+    stream.synchronize()
+    assert int(word[0]) == ((1 << 32) + 2) << cg.TICKET_BITS
+    for (trig, pulses), amp in zip(got, (first, second, second)):
+        want_trig, want_pulses = compat_gate_plain(amp, avg, 0.5, 2, 5, 3)
+        assert torch.equal(trig, want_trig) and torch.equal(pulses, want_pulses)
+
+
 @pytest.mark.parametrize("n", [100_003, 4000])
 def test_compat_gate_kernel_on_unaligned_input(cuda, n):
-    """amp and avg 4 bytes past a 16-byte boundary: the kernel's scalar loads
-    and stores, over several tiles and in one."""
+    """amp and avg 4 bytes past a 16-byte boundary (the loads take any
+    alignment), over several tiles and in one, in every configuration."""
     amp = torch.from_numpy(np.random.default_rng(n).choice([0.0, 0.5, 1.0], n)
                            .astype(np.float32))
     buf = torch.empty(2 * n + 2, device=cuda)
@@ -445,9 +531,10 @@ def test_compat_gate_kernel_on_unaligned_input(cuda, n):
     a.copy_(amp)
     v.fill_(1.0)
     assert a.data_ptr() % 16 and v.data_ptr() % 16
-    trig, pulses = compat_gate(a, v, 0.5, 2, 5, 3)
-    want_trig, want_pulses = compat_gate_plain(amp, torch.ones(n), 0.5, 2, 5, 3)
-    assert torch.equal(trig.cpu(), want_trig) and torch.equal(pulses.cpu(), want_pulses)
+    for config in range(len(CONFIGS)):
+        trig, pulses = compat_gate(a, v, 0.5, 2, 5, 3, config=config)
+        want_trig, want_pulses = compat_gate_plain(amp, torch.ones(n), 0.5, 2, 5, 3)
+        assert torch.equal(trig.cpu(), want_trig) and torch.equal(pulses.cpu(), want_pulses)
 
 
 def test_compat_gate_kernel_on_golden(cuda):
