@@ -146,6 +146,20 @@ then:
     the kernels timed beside their bounds (gate_front's two builds with
     their plain versions, the y build's tile swept, conv1d), the segment
     kernel with its shape and sweep;
+16b. compat mode and the exact gate at the seven geometries of phases 10,
+    16 and 20 (Miller-4 at decim 1, Miller-2, Miller-8 TRext, BLF 640 and
+    160 kHz, FM0 at 8 and 16 Msps) at full size: the compat, exact native
+    and exact compat decodes, each through one launch of gate_front's full
+    build and one of compat_gate or gate_scan (no gate_stack), reading
+    ``GEOMETRY_EPCS`` (compat reads none at BLF 640 and 160 kHz, as the JAX
+    package does), each exact-gate decode's stats equal to the default
+    gate's in its mode, each timed, profiled and its peak memory read; the
+    three decodes of each geometry's 3-round capture equal to the CPU's
+    (at 8 Msps in compat mode but for the window products of the padding
+    rows: ROADMAP.md section 3, item 12); gate_scan (with its walk's
+    steps), compat_gate (with its configurations swept) and, at blf640 and
+    blf160, gate_front's full build, each bit-equal to its plain version at
+    the geometry's shape and timed beside its bound; the phase's wall time;
 17. the closed-loop live reader (``runtime/live.py::LiveReader``): portal24,
     tests/test_population.py's 24-tag session inventory (backlog Q, SIC,
     A/B targets, 40 round commands), with the JAX package's counts (277
@@ -203,11 +217,12 @@ then:
 
 Prints a ``{"kernels": [...]}`` line: ``gate_front`` is the full build
 (its launches the compat bench decode's and, under ``launches_exact``, the
-exact gate's; its Miller, 8 / 16 Msps, live and shard shapes with their
-times), ``gate_front_y`` the y build (its launches the native bench
-decode's; every native shape's row under ``shapes``; its launches in mrc4,
-sic2's recovery, the CLI's decode, portal24, the bench n_time 8 sharded
-decode and phases 19 and 20; its live shapes' rows, each with its time at
+exact gate's, and phase 16b's under ``launches_geometry_modes``; its
+Miller, 8 / 16 Msps, live and shard shapes with their times, blf640's and
+blf160's under ``geometry_modes``), ``gate_front_y`` the y build (its
+launches the native bench decode's; every native shape's row under
+``shapes``; its launches in mrc4, sic2's recovery, the CLI's decode,
+portal24, the bench n_time 8 sharded decode and phases 19 and 20; its live shapes' rows, each with its time at
 the fitting tile and at one tile an SM under ``tiles``, and the same at
 the stream's chunk shapes under ``stream_tiles``); gate_stack's entry
 carries its launches in the CLI's decode under ``launches_cli``, in
@@ -218,12 +233,14 @@ portal24 under ``launches_live`` and its live shapes' rows under
 ``launches_sweeps`` and in phase 20's under ``launches_bench`` (the
 stream kernel there, the segment kernel under ``gate_stack_segment``);
 ``gate_stack_segment``, gate_stack's segment kernel, its rows at blf640, the
-Miller shapes and 8 and 16 Msps under ``shapes``); ``compat_gate`` (its
-launches the compat bench decode's, its stream, shard and live launches,
-its ``design``, ``kernels_a_call``, ``tile`` and ``config`` at bench, its
-bench, golden, live-window and fm0_16msps rows under ``shapes`` and its
-configuration sweep under ``sweep``, the compat bench decode's ms and
-profile with the plain chain and with the kernel), the
+Miller shapes and 8 and 16 Msps under ``shapes``); ``gate_scan`` (its
+launches the exact bench decode's, the CLI's and phase 16b's, its rows at
+the seven geometries under ``shapes``); ``compat_gate`` (its
+launches the compat bench decode's, its stream, shard, live and phase 16b
+launches, its ``design``, ``kernels_a_call``, ``tile`` and ``config`` at
+bench, its bench, golden, live-window, fm0_16msps and phase 16b rows under
+``shapes`` and its configuration sweep under ``sweep``, the compat bench
+decode's ms and profile with the plain chain and with the kernel), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 without CUDA, and outside a checkout of the repository.  Imports nothing of
@@ -280,24 +297,44 @@ def golden_tuple(st):
             unique_tags(st), int(st.tag_reads[0x1B]))
 
 
-def same_as_cpu(label, cuda_run, cpu_run):
+# What a decode reads from an event's window; the other fields of
+# DecodedEvents come from the gate.
+WINDOW_PRODUCTS = ("rn16_bits", "epc_bits", "epc_pass", "tag_id", "t_half", "h_est",
+                   "slot_state", "rn16_energy", "rn16_margin")
+
+
+def same_as_cpu(label, cuda_run, cpu_run, invalid_rows=True):
     """Every int/bool field of a CUDA decode's DecodedEvents and
     InventoryStats equals the CPU decode's; the float fields' largest
-    differences are logged."""
+    differences are logged.  With ``invalid_rows=False`` the window
+    products of the invalid rows (padding: the capture's last 8-sample row
+    repeated) are left out of the comparison and the invalid rows where they
+    differ are counted: ROADMAP.md section 3, item 12."""
     import torch
 
     (st_g, dec_g), (st_c, dec_c) = cuda_run, cpu_run
+    valid = dec_c.valid
+    apart = torch.zeros_like(valid)
     for f in dec_g._fields:
         a, b = getattr(dec_g, f).cpu(), getattr(dec_c, f)
+        if not invalid_rows and f in WINDOW_PRODUCTS:
+            differ = (a != b).reshape(a.shape[0], -1).any(1)
+            apart |= differ & ~valid
+            a, b = a[valid], b[valid]
         if a.dtype in (torch.int32, torch.bool):
             check(torch.equal(a, b), f"{label} DecodedEvents.{f}: CUDA != CPU")
         else:
             log(f"[{label}] DecodedEvents.{f} max|cuda-cpu| = "
-                f"{float((a - b).abs().max()):.3g}")
+                f"{float((a - b).abs().max()) if a.numel() else 0.0:.3g}")
     for f in st_g._fields:
         check(torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f)),
               f"{label} InventoryStats.{f}: CUDA != CPU")
-    log(f"[{label}] CUDA decode == CPU decode on every int/bool field")
+    if invalid_rows:
+        log(f"[{label}] CUDA decode == CPU decode on every int/bool field")
+    else:
+        log(f"[{label}] CUDA decode == CPU decode on every int/bool field but the window "
+            f"products of invalid rows: {int(apart.sum())} of {int((~valid).sum())} invalid "
+            f"rows decode apart (ROADMAP.md section 3, item 12)")
 
 
 def bound(bytes_moved, flops):
@@ -344,11 +381,13 @@ def stage_breakdown(x2, cfg, reps=5, label="stages"):
     log(f"[{label}] sum of medians   {total:8.3f} ms")
 
 
-def device_profile(fn, reps=3, top=12, label="profile", unit="decode"):
+def device_profile(fn, reps=3, top=12, label="profile", unit="decode", summary=None):
     """torch.profiler over reps decodes (or calls of ``unit``): device time
     by kernel, the share of the window's wall time the device was busy, and
     the device ops (kernels, copies, fills) a decode.  Returns the rows (device us over
-    the reps, calls, name)."""
+    the reps, calls, name); fills ``summary``, where given, with the wall and
+    busy ms a ``unit``, the busy share, the device ops and the largest device
+    work (us a ``unit``, calls, name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -375,6 +414,11 @@ def device_profile(fn, reps=3, top=12, label="profile", unit="decode"):
         f"{n_ops} device ops/{unit}")
     for t, count, key in sorted(rows, reverse=True)[:top]:
         log(f"[{label}] {t / reps:9.1f} us/{unit} {count // reps:5d} calls  {key[:90]}")
+    if summary is not None:
+        t, count, key = max(rows)
+        summary.update(wall_ms=wall_us / reps / 1e3, busy_ms=busy_us / reps / 1e3,
+                       busy_share=busy_us / wall_us, device_ops=n_ops,
+                       largest=[t / reps, count // reps, key[:90]])
     return rows
 
 
@@ -619,6 +663,209 @@ def phase_high_rates(dev, both, fmt, flush, path_run, tiles=2):
                                      launches=counts["gate_stack"])
         del x2, y2, got
     return rows, launches
+
+
+# Phase 16b: compat mode and the exact gate at the seven geometries of phases
+# 10, 16 and 20, at full size.  Tag 27's EPCs a decode: compat, exact native,
+# exact compat.  Compat keeps the reference's reply windows (2 tag bits of
+# slack, a sync search of 1.5 tag bits), which miss every reply at BLF 640
+# and 160 kHz, in the JAX package too (ROADMAP.md section 3, item 11).
+GEOMETRY_EPCS = {
+    "miller4": (480, 480, 480), "miller2": (400, 400, 400),
+    "miller8_trext": (120, 120, 120), "blf640": (0, 260, 0), "blf160": (0, 400, 0),
+    "fm0_8msps": (40, 40, 40), "fm0_16msps": (20, 20, 20)}
+# The three decodes of a geometry: label, mode, exact_gate.
+GEOMETRY_DECODES = (("compat", "compat", False), ("exact native", "native", True),
+                    ("exact compat", "compat", True))
+# The capture each geometry is held to the CPU decode on: 3 rounds, a
+# 32-row table.
+SMALL_ROUNDS, SMALL_EVENTS = 3, 32
+# Where the paranoid decodes (compat mode: every event's window decoded)
+# meet padding rows that the card and the CPU decode apart: the preamble
+# correlation of the capture's last 8-sample row repeated is 0 at every
+# offset but for rounding (ROADMAP.md section 3, item 12).
+PADDING_APART = ("fm0_8msps",)
+
+
+def geometry_cases():
+    """{name: DecodeCase} of the seven geometries at full size:
+    bench_configs' Miller and BLF cases and phase 16's FM0 captures at 8 and
+    16 Msps (tag 27 seed 7, seed 2, tiled)."""
+    from gen2_rfid_tpu_torch.config import ReaderConfig
+    from gen2_rfid_tpu_torch.tools.bench import DecodeCase
+    from gen2_rfid_tpu_torch.tools.bench_configs import CASES, TAG27
+
+    cases = {name: CASES[name]
+             for name in ("miller4", "miller2", "miller8_trext", "blf640", "blf160")}
+    for name, kw, rounds in HIGH_RATES:
+        cases[name] = DecodeCase(ReaderConfig(**kw), TAG27, n_rounds=rounds, seed=2, tiles=2)
+    return cases
+
+
+def scan_row(label, amp, avg, args, both, fmt):
+    """gate_scan at one shape: bit-equal to its plain version (the host
+    loop, timed once) and to its Python model, whose walk gives the serial
+    steps; timed under both flushes beside its bound (amp and avg in, trig
+    and pulses out: 13 bytes a sample; a multiply and two compares).
+    Returns the row for the kernels line."""
+    import torch
+
+    from gen2_rfid_tpu_torch.kernels.gate_scan import (
+        gate_scan, gate_scan_edges_plain, gate_scan_plain)
+
+    n = amp.shape[0]
+    got_t, got_p = gate_scan(amp, avg, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_t, want_p = gate_scan_plain(amp, avg, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bad = int((got_t != want_t).sum()) + int((got_p != want_p).sum())
+    check(n_bad == 0, f"gate_scan differs from its plain version at {label}: {n_bad} outputs")
+    m_t, m_p, steps = gate_scan_edges_plain(amp, avg, *args)
+    check(torch.equal(m_t, want_t.cpu()) and torch.equal(m_p, want_p.cpu()),
+          f"gate_scan's edge-walk model differs from the plain FSM at {label}")
+    t = both(lambda: gate_scan(amp, avg, *args), 5)
+    b, by = bound(13 * n, 3 * n)
+    log(f"[time] {label} gate_scan n={n}: {fmt(t)} for {steps} serial steps "
+        f"({int(want_t.sum())} triggers), bound {b:.6f} ms ({by}), "
+        f"{100 * b / t['read']:.2f}% of the read time; plain {plain_ms:.1f} ms (host loop); "
+        f"kernel == plain == model")
+    return {"n": n, "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
+            "share_read": b / t["read"], "plain_ms": plain_ms, "steps": steps,
+            "triggers": int(want_t.sum())}
+
+
+def phase_geometry_modes(dev, both, fmt, flush):
+    """Phase 16b: compat mode and the exact gate at every geometry the native
+    path runs (``geometry_cases``).  At each, at full size: the compat, exact
+    native and exact compat decodes on the card, each through one launch of
+    gate_front's full build and one of compat_gate or gate_scan (no
+    gate_stack, no y build), reading ``GEOMETRY_EPCS`` of tag 27, each
+    exact-gate decode's stats equal to the default gate's in its mode; each
+    timed, profiled and its peak memory read.  On the geometry's 3-round
+    capture the three card decodes equal the CPU decode.  gate_front's full
+    build, gate_scan and compat_gate bit-equal to their plain versions at
+    the geometry's shape; gate_scan timed with its walk's steps, compat_gate
+    by ``compat_row`` with its configurations swept, the full build by
+    ``full_row`` at blf640 and blf160 (phases 10 and 16 time it at the
+    others).  Returns the rows for the kernels line, the launches of the
+    full-size decodes and the configuration sweep; logs the table of
+    decodes as one JSON object."""
+    import dataclasses
+
+    import torch
+
+    from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate, compat_gate_plain
+    from gen2_rfid_tpu_torch.kernels.gate_front import front_taps, gate_front, gate_front_plain
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.runtime.stats import unique_tags
+    from gen2_rfid_tpu_torch.tools.bench import narrowed
+    from gen2_rfid_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    rows = {"gate_scan": {}, "compat_gate": {}, "gate_front": {}}
+    launches = {"gate_front": 0, "gate_scan": 0, "compat_gate": 0}
+    table, sweep_shapes = {}, {}
+    for name, case in geometry_cases().items():
+        t_geo = time.perf_counter()
+        cfg = case.cfg
+        iq, _ = case.capture()
+        x2 = to_planar(iq).to(dev)
+        del iq
+        n = x2.shape[1]
+        geo_f = (cfg.decim, front_taps(cfg), cfg.win_length, cfg.dc_length)
+        got = gate_front(x2, *geo_f)
+        check(all(torch.equal(g, w) for g, w in zip(got, gate_front_plain(x2, *geo_f))),
+              f"{name}: gate_front's full build is not bit-equal to its plain version")
+        _, amp, avgsum, _ = got
+        del got
+        avg = avgsum / torch.tensor(float(cfg.win_length), device=dev)
+        log(f"[{name} modes] N={n}, Ny={amp.shape[0]}; gate_front full build (decim, taps, "
+            f"win, dc) {geo_f} bit-equal to plain")
+        default = {"native": decode_capture_planar(x2, cfg)[0]}
+        for (label, mode, exact), want_epc in zip(GEOMETRY_DECODES, GEOMETRY_EPCS[name]):
+            c = dataclasses.replace(cfg, mode=mode)
+            kernels.reset_launches()
+            st, _ = decode_capture_planar(x2, c, exact_gate=exact)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            want = counts_of(1, gate_scan=1, build="full") if exact else compat_counts(1)
+            log(f"[{name} {label}] launches {got}; {int(st.n_epc_correct)} EPCs, "
+                f"{unique_tags(st)} tag(s)")
+            check(got == want, f"{name} {label}: launches {got}, expected {want}")
+            for k in launches:
+                launches[k] += got[k]
+            check(int(st.n_epc_correct) == want_epc and int(st.tag_reads[27]) == want_epc
+                  and unique_tags(st) == (want_epc > 0),
+                  f"{name} {label}: {int(st.n_epc_correct)} EPCs ({int(st.tag_reads[27])} of "
+                  f"tag 27, {unique_tags(st)} tags), expected {want_epc} of tag 27")
+            if not exact:
+                default[mode] = st
+            else:
+                for f in st._fields:
+                    check(torch.equal(getattr(st, f), getattr(default[mode], f)),
+                          f"{name} {label}: InventoryStats.{f} != the default gate's")
+            ms = cuda_ms(lambda: decode_capture_planar(x2, c, exact_gate=exact), 5)
+            prof = {}
+            device_profile(lambda: decode_capture_planar(x2, c, exact_gate=exact), reps=2,
+                           top=6, label=f"profile {name} {label}", summary=prof)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            decode_capture_planar(x2, c, exact_gate=exact)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"[{name} {label}] decode {ms:.3f} ms for {n} samples "
+                f"({n / ms / 1e3:.1f} Msamples/s), {want_epc} EPCs; peak memory "
+                f"{peak / 2**20:.1f} MB, {(peak - base) / 2**20:.1f} MB over the "
+                f"{base / 2**20:.1f} MB held before it"
+                + ("; stats equal to the default gate's" if exact else ""))
+            table[f"{name} {label}"] = dict(ms=ms, epcs=want_epc, peak_mb=peak / 2**20,
+                                            decode_peak_mb=(peak - base) / 2**20, **prof)
+        # The kernels at this shape.
+        cfg_c = dataclasses.replace(cfg, mode="compat")
+        args_c = (cfg_c.thresh_fraction, cfg_c.n_samples_pw // 2, cfg_c.n_samples_t1,
+                  cfg_c.num_pulses_command)
+        got = compat_gate(amp, avg, *args_c)
+        want = compat_gate_plain(amp, avg, *args_c)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name}: compat_gate is not bit-equal to its plain version")
+        args_s = (cfg.thresh_fraction, cfg.n_samples_pw // 2, cfg.n_samples_t1,
+                  cfg.num_pulses_command, cfg.rn16_window, cfg.epc_window)
+        rows["gate_scan"][name] = dict(scan_row(name, amp, avg, args_s, both, fmt), launches=2)
+        if name != "fm0_16msps":         # phase 6 times it there
+            rows["compat_gate"][name] = dict(
+                compat_row(name, amp, avg, args_c, both, fmt, count_ops=False), launches=1)
+            sweep_shapes[name] = (amp, avg, args_c)
+        if name in ("blf640", "blf160"):  # phases 10 and 16 time the others
+            rows["gate_front"][name] = dict(full_row(name, x2, geo_f, both, fmt), launches=3)
+
+        # The 3-round capture: the three decodes on the card equal the CPU's.
+        small = narrowed(dataclasses.replace(case, cfg=dataclasses.replace(
+            cfg, max_events=SMALL_EVENTS)), SMALL_ROUNDS, 1)
+        x2s = to_planar(small.capture()[0])
+        for label, mode, exact in GEOMETRY_DECODES:
+            c = dataclasses.replace(small.cfg, mode=mode)
+            kernels.reset_launches()
+            run = decode_capture_planar(x2s.to(dev), c, exact_gate=exact)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            want = counts_of(1, gate_scan=1, build="full") if exact else compat_counts(1)
+            check(got == want, f"{name} {label}, 3 rounds: launches {got}, expected {want}")
+            same_as_cpu(f"{name} {label}, 3 rounds", run,
+                        decode_capture_planar(x2s, c, exact_gate=exact, device="cpu"),
+                        invalid_rows=not (name in PADDING_APART and mode == "compat"))
+        del x2, amp, avg, avgsum
+        torch.cuda.empty_cache()
+        log(f"[{name} modes] {time.perf_counter() - t_geo:.1f} s")
+    sweep = compat_sweep(sweep_shapes, both)
+    del sweep_shapes
+    log(f"[geometry modes table] {json.dumps(table)}")
+    log(f"[phase 16b] compat and the exact gate at {len(table) // 3} geometries: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, sweep
 
 
 # Full-size Miller captures: bench_configs.py's case_miller4, case_miller2 and
@@ -2163,14 +2410,15 @@ def plain_compat_chain():
         gate.compat_gate_for_cfg = kernel
 
 
-def compat_row(label, amp, avg, args, both, fmt, reps=20, plain_reps=5):
+def compat_row(label, amp, avg, args, both, fmt, reps=20, plain_reps=5, count_ops=True):
     """compat_gate at one shape, timed under both flushes beside its bound
     (amp and avg in, trig and pulses_at out: 13 bytes a sample; a multiply
     and two compares), its plain version on the card and one
     ``torch.cummax`` of an int32 row of the same length (the library call
-    each of the plain version's scans is), and the device ops of a call from
-    ``torch.profiler``, which must be its one kernel.  Returns the row, with
-    the configuration the wrapper chose and its tile."""
+    each of the plain version's scans is), and, with ``count_ops``, the
+    device ops of a call from ``torch.profiler``, which must be its one
+    kernel.  Returns the row, with the configuration the wrapper chose and
+    its tile."""
     import torch
 
     from gen2_rfid_tpu_torch.kernels.compat_gate import (
@@ -2184,14 +2432,16 @@ def compat_row(label, amp, avg, args, both, fmt, reps=20, plain_reps=5):
     pt = both(lambda: compat_gate_plain(amp, avg, *args), plain_reps)
     lt = both(lambda: torch.cummax(idx, 0), plain_reps)
     b, by = bound(13 * n, 3 * n)
-    prof = device_profile(lambda: compat_gate(amp, avg, *args), reps=20, top=8,
-                          label=f"profile compat_gate {label}", unit="call")
-    ops = sum(r[1] for r in prof) // 20 if prof else None
-    check(ops == 1, f"compat_gate at {label}: {ops} device ops a call, not its one kernel")
+    ops = None
+    if count_ops:
+        prof = device_profile(lambda: compat_gate(amp, avg, *args), reps=20, top=8,
+                              label=f"profile compat_gate {label}", unit="call")
+        ops = sum(r[1] for r in prof) // 20 if prof else None
+        check(ops == 1, f"compat_gate at {label}: {ops} device ops a call, not its one kernel")
     log(f"[time] {label} compat_gate n={n} (configuration {config}, tile "
         f"{config_tile(config)}): {fmt(t)}, bound {b:.6f} ms ({by}), "
         f"{100 * b / t['read']:.1f}% of the read time; plain {fmt(pt)}; torch.cummax of an "
-        f"int32 row {fmt(lt)}; {ops} device op a call")
+        f"int32 row {fmt(lt)}" + (f"; {ops} device op a call" if count_ops else ""))
     return {"n": n, "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
             "share_read": b / t["read"], "plain_ms": pt["write"], "plain_ms_read": pt["read"],
             "library_ms": lt["write"], "library_ms_read": lt["read"], "kernels_a_call": ops,
@@ -2953,6 +3203,9 @@ def main() -> int:
     # ---- phase 16: 8 and 16 Msps captures, the segment kernel's widest ----
     high, high_launches = phase_high_rates(dev, both, fmt, flush, native_path_run)
     hold_kept("phase 16")
+    # ---- phase 16b: compat and the exact gate at every native geometry ----
+    modes_rows, modes_launches, modes_sweep = phase_geometry_modes(dev, both, fmt, flush)
+    hold_kept("phase 16b")
     # ---- phase 17: the closed-loop live reader ----
     live = phase_live(dev, both, fmt, flush)
     hold_kept("phase 17")
@@ -2990,6 +3243,8 @@ def main() -> int:
          "launches_exact": exact_launches["front_full"],
          "launches_cli_exact": cli_launches_exact["front_full"],
          "miller": miller_shapes["gate_front"], "high_rates": high["full"],
+         "geometry_modes": modes_rows["gate_front"],
+         "launches_geometry_modes": modes_launches["gate_front"],
          "live_shapes": live["gate_front"][1], "sharded_shape": shard_rows["gate_front"]},
         {"name": "gate_front_y", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/gate_front.cu",
@@ -3041,7 +3296,8 @@ def main() -> int:
          "ms": scan_t["write"], "plain_ms": scan_plain_ms, "bound_ms": scan_bound,
          "bound_by": scan_by, "library_ms": None, "ms_read": scan_t["read"],
          "plain_ms_read": None, "library_ms_read": None,
-         "launches_cli": cli_launches_exact["gate_scan"]},
+         "launches_cli": cli_launches_exact["gate_scan"], "shapes": modes_rows["gate_scan"],
+         "launches_geometry_modes": modes_launches["gate_scan"]},
         # compat_gate: its launches are the compat bench decode's; its
         # stream, shard and live launches beside them; its design, device
         # kernels a call and tile at bench; its rows at bench, golden, a live
@@ -3064,8 +3320,10 @@ def main() -> int:
                    "state kept in its scratch, a halo of nt1 + 1 samples)",
          "kernels_a_call": compat["rows"]["bench"]["kernels_a_call"],
          "tile": compat["rows"]["bench"]["tile"], "config": compat["rows"]["bench"]["config"],
-         "sweep": compat["sweep"],
-         "shapes": compat["rows"], "launches_stream": compat["stream"],
+         "sweep": {**compat["sweep"], **modes_sweep},
+         "shapes": {**compat["rows"], **modes_rows["compat_gate"]},
+         "launches_geometry_modes": modes_launches["compat_gate"],
+         "launches_stream": compat["stream"],
          "launches_sharded": compat["sharded"], "launches_live": compat["live"],
          "compat_decode_ms": compat["decode_ms"], "compat_decode_profile": compat["profile"]},
         {"name": "probe", "route": "cuda",

@@ -609,9 +609,20 @@ def test_gate_front_kernel_at_high_rates(cuda, adc):
         assert torch.equal(g, w), geo
 
 
-def _same_int_fields(got, want):
+# What a decode reads from an event's window; the other fields of
+# DecodedEvents come from the gate.
+WINDOW_PRODUCTS = ("rn16_bits", "epc_bits", "epc_pass", "tag_id", "slot_state")
+
+
+def _same_int_fields(got, want, invalid_rows=True):
+    """Every int/bool field equal; with ``invalid_rows=False`` the window
+    products of invalid (padding) rows are left out (ROADMAP.md section 3,
+    item 12)."""
+    valid = getattr(want, "valid", None)
     for f in got._fields:
         a, b = getattr(got, f).cpu(), getattr(want, f)
+        if not invalid_rows and f in WINDOW_PRODUCTS:
+            a, b = a[valid], b[valid]
         if a.dtype in (torch.int32, torch.bool):
             assert torch.equal(a, b), f
 
@@ -658,6 +669,47 @@ def test_decode_at_high_rates_on_card(cuda, adc):
     st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
     _same_int_fields(dec, dec_c)
     _same_int_fields(st, st_c)
+
+
+# Compat mode and the exact gate at two geometries of chip_smoke.py's phase
+# 16b: Miller-4 at decim 1 and FM0 at 8 Msps, decim 1.
+GEOMETRY_MODES = {"miller4": dict(miller_m=4, decim=1), "fm0_8msps": dict(adc_rate=8e6, decim=1)}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRY_MODES))
+@pytest.mark.parametrize("mode,exact", [("compat", False), ("native", True), ("compat", True)],
+                         ids=["compat", "exact_native", "exact_compat"])
+def test_modes_at_native_geometries_on_card(cuda, name, mode, exact):
+    """The 3-round capture (tag 27 seed 7, seed 2, a 32-row table): through
+    one launch of gate_front's full build and one of compat_gate or
+    gate_scan, no gate_stack; every EPC; equal to the CPU decode on every
+    int/bool field (at 8 Msps in compat mode but for the window products of
+    the 26 padding rows, ROADMAP.md section 3, item 12); the exact gate's
+    stats equal to the default gate's."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import synthesize_inventory
+
+    kw = GEOMETRY_MODES[name]
+    tr = synthesize_inventory(ReaderConfig(max_events=32, **kw), [Tag.with_id(27, seed=7)],
+                              n_rounds=3, seed=2)
+    c = ReaderConfig(mode=mode, max_events=32, **kw)
+    x2 = to_planar(tr.iq)
+    before = (dict(kernels.launches), dict(kernels.front_bodies))
+    st, dec = decode_capture_planar(x2.to(cuda), c, exact_gate=exact)
+    torch.cuda.synchronize()
+    got = {k: kernels.launches[k] - before[0][k] for k in kernels.launches}
+    assert got == {"gate_front": 1, "gate_stack": 0, "gate_scan": int(exact),
+                   "compat_gate": int(not exact), "probe": 0}
+    assert kernels.front_bodies["full"] == before[1]["full"] + 1
+    assert int(st.n_epc_correct) == int(st.tag_reads[27]) == 3
+    st_c, dec_c = decode_capture_planar(x2, c, exact_gate=exact, device="cpu")
+    _same_int_fields(dec, dec_c, invalid_rows=not (name == "fm0_8msps" and mode == "compat"))
+    _same_int_fields(st, st_c)
+    if exact:
+        default, _ = decode_capture_planar(x2.to(cuda), c)
+        for f in st._fields:
+            assert torch.equal(getattr(st, f), getattr(default, f)), f
 
 
 def test_channelize_on_card(cuda):

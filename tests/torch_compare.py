@@ -36,12 +36,15 @@ def port_cfg(ref_cfg):
     return carry.config_from_fields(dataclasses.asdict(ref_cfg))
 
 
-def assert_same_decoded(got, want, invalid_rows=True):
+def assert_same_decoded(got, want, invalid_rows=True, margin_per_row=False):
     """``invalid_rows=False`` leaves out the decode products of invalid
     events too: their windows are the capture's last granule row repeated,
     where a diversity decode's period search meets candidates whose energy
     sums are equal but for rounding, decided by each side's summation
-    order."""
+    order.  ``margin_per_row=True`` holds each rn16_margin above 1 to 1e-3 of
+    its own magnitude (the stated tolerance of an O(1) margin, scaled): a
+    window that holds no reply has a near-cancelling |h| and a margin of
+    tens (ROADMAP.md section 3, item 11)."""
     g = carry.decoded_to_numpy(got)
     np.testing.assert_array_equal(g["valid"], np.asarray(want.valid))
     pad = ~g["valid"] if invalid_rows else np.zeros_like(g["valid"])
@@ -56,7 +59,11 @@ def assert_same_decoded(got, want, invalid_rows=True):
         keep = rows.get(f, slice(None))
         w = np.asarray(getattr(want, f))[keep]
         scale = max(np.abs(w).max(initial=0.0), 1e-30) if relative else 1.0
-        np.testing.assert_allclose(g[f][keep], w, rtol=0, atol=tol * scale, err_msg=f)
+        got_f = g[f][keep]
+        if margin_per_row and f == "rn16_margin":
+            row = np.maximum(np.abs(w), 1.0)
+            got_f, w = got_f / row, w / row
+        np.testing.assert_allclose(got_f, w, rtol=0, atol=tol * scale, err_msg=f)
 
 
 def assert_same_stats(got, want):
