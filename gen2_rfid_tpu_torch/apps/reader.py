@@ -17,6 +17,7 @@ Usage:
   python -m gen2_rfid_tpu_torch.apps.reader golden OUT.bin
   python -m gen2_rfid_tpu_torch.apps.reader live [--rounds N] [--tags ...] [--sic]
   python -m gen2_rfid_tpu_torch.apps.reader --device cpu decode CAPTURE.bin
+  python -m gen2_rfid_tpu_torch.apps.reader decode CAPTURE.bin --trace-dir DIR
 """
 
 from __future__ import annotations
@@ -52,6 +53,17 @@ def _cfg_from_args(args) -> "ReaderConfig":
 
 
 def cmd_decode(args) -> int:
+    if not args.trace_dir:
+        return _decode_files(args)
+    from ..utils import profiling
+
+    with profiling.trace(args.trace_dir):
+        rc = _decode_files(args)
+    print(profiling.format_table(profiling.span_table()), file=sys.stderr)
+    return rc
+
+
+def _decode_files(args) -> int:
     import functools
     import logging
 
@@ -557,6 +569,10 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--report", metavar="FILE",
                    help="write per-read JSON-lines tag reports (time, EPC "
                         "hex, RSSI, phase) to FILE ('-' = stdout)")
+    d.add_argument("--trace-dir", metavar="DIR",
+                   help="run the decode under torch.profiler and write its trace, "
+                        "with the decode's spans, to DIR (TensorBoard's profiler "
+                        "plugin or chrome://tracing); print the span table to stderr")
     d.set_defaults(fn=cmd_decode, decodes=True)
 
     r = sub.add_parser("range", help="PDOA tag ranging: one capture per "

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
+from ..utils import profiling
 from .filters import magnitude
 
 
@@ -62,7 +63,7 @@ def _diff_samples(frames: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig,
     offs, span = _half_bit_offsets(cfg, n_half)
     w = frames.shape[1]
     start = torch.clamp(index.to(torch.int64), 0, w - span)
-    pos = start[:, None] + torch.as_tensor(offs, device=frames.device)[None, :]
+    pos = start[:, None] + profiling.to_device(offs, frames.device)[None, :]
     s = frames.gather(1, pos)
     return s[:, 0::2] - s[:, 1::2]
 
@@ -164,11 +165,11 @@ def epc_period(magn2: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig
     cand, _ = epc_period_grid(cfg)
     probes, _ = _energy_positions(cfg)
     e0 = _energy_starts(index, magn2.shape[1], cfg)
-    epos = e0[:, None, None] + torch.as_tensor(probes, device=dev)[None]
+    epos = e0[:, None, None] + profiling.to_device(probes, dev)[None]
     energy = magn2[torch.arange(magn2.shape[0], device=dev)[:, None, None],
                    epos].sum(dim=2)                       # (E, steps)
     t_sel = torch.argmax(energy, dim=1)
-    return t_sel, torch.as_tensor(cand, device=dev)[t_sel]
+    return t_sel, profiling.to_device(cand, dev)[t_sel]
 
 
 def epc_diff_samples(frames: torch.Tensor, index: torch.Tensor, t_sel: torch.Tensor,
@@ -182,7 +183,7 @@ def epc_diff_samples(frames: torch.Tensor, index: torch.Tensor, t_sel: torch.Ten
     sl_start = torch.clamp(index.to(torch.int64), 0, frames.shape[-1] - span)
 
     def at(tab):
-        p = sl_start[:, None] + torch.as_tensor(tab, device=dev)[t_sel]      # (E, n_bits)
+        p = sl_start[:, None] + profiling.to_device(tab, dev)[t_sel]      # (E, n_bits)
         p = p.reshape((p.shape[0],) + (1,) * (frames.dim() - 2) + (p.shape[1],))
         return frames.gather(-1, p.expand(frames.shape[:-1] + (p.shape[-1],)))
 

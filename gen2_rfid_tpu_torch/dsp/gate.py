@@ -33,6 +33,7 @@ from ..kernels.gate_scan import gate_scan_for_cfg
 from ..kernels.gate_stack import (
     MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg, native_flags_from_amp)
 from ..runtime.frames import gather_aligned_windows_multi
+from ..utils import profiling
 from .filters import run_sum
 
 
@@ -131,6 +132,7 @@ def _native_triggers(flags: torch.Tensor, cfg: ReaderConfig):
     return trig, pulses_at
 
 
+@profiling.spanned("gen2.gate")
 def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
                 amp: torch.Tensor = None, avg: torch.Tensor = None) -> GateEvents:
     """Detect reader-command-over events in a post-decimation I/Q block.
@@ -151,8 +153,8 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     else:
         if flags is None and amp is not None:
             if avg is None:
-                avg = run_sum(amp, cfg.win_length) / torch.tensor(
-                    float(cfg.win_length), dtype=torch.float32, device=dev)
+                avg = run_sum(amp, cfg.win_length) / profiling.to_device(
+                    float(cfg.win_length), dev, torch.float32)
             flags = native_flags_from_amp(amp, avg, cfg.n_samples_pw // 2, nt1,
                                           cfg.thresh_fraction)
         elif flags is None:
@@ -195,6 +197,7 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     )
 
 
+@profiling.spanned("gen2.gate")
 def gate_detect_scan(y: torch.Tensor, cfg: ReaderConfig, amp: torch.Tensor,
                      avg: torch.Tensor) -> GateEvents:
     """Exact sequential oracle (gate.py:323-381): the reference gate's

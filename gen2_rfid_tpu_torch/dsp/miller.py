@@ -35,6 +35,7 @@ import torch
 from ..config import ReaderConfig
 from ..runtime.frames import GRANULE
 from ..sim.tag import miller_chips
+from ..utils import profiling
 from .fm0 import _track_and_slice
 
 _F32 = torch.float32
@@ -109,7 +110,7 @@ def _sync_device(cfg: ReaderConfig, device: torch.device):
     s, span, dshift, n_off, eps_grid, pos, weights = _sync_tables(cfg)
 
     def t(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return profiling.to_device(a, device, dtype)
 
     return (t(s, _F64), span, t(dshift), n_off, t(eps_grid), t(pos),
             t(weights.astype(np.float64)))
@@ -215,11 +216,11 @@ def offset_prior_table(cfg: ReaderConfig, n_bits: int, seg_bits: int,
 def _cascade_device(cfg: ReaderConfig, n_bits: int, seg_bits: int, off_chips: float,
                     device: torch.device):
     tables, eps, offsets = segment_positions(cfg, n_bits, seg_bits, off_chips)
-    segs = tuple((s0, span, rel.shape[2], torch.as_tensor(rel.reshape(-1), device=device))
+    segs = tuple((s0, span, rel.shape[2], profiling.to_device(rel.reshape(-1), device))
                  for s0, span, rel in tables)
     prior = offset_prior_table(cfg, n_bits, seg_bits, off_chips)
-    return (segs, torch.as_tensor(eps, device=device),
-            torch.as_tensor(offsets, device=device), torch.as_tensor(prior, device=device))
+    return (segs, profiling.to_device(eps, device),
+            profiling.to_device(offsets, device), profiling.to_device(prior, device))
 
 
 def _sum_last(v: torch.Tensor, sign_alternates: bool = False) -> torch.Tensor:
@@ -264,7 +265,7 @@ def miller_detect(frames: torch.Tensor, index: torch.Tensor, h_est: torch.Tensor
     idx = index.to(torch.int64)
 
     def f32(v):
-        return torch.tensor(v, dtype=_F32, device=dev)
+        return profiling.to_device(v, dev, _F32)
 
     d = np.float32(cfg.n_samples_chip)
     d_t = f32(d)

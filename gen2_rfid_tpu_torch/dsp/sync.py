@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import TAG_PREAMBLE_BITS_PATTERN, ReaderConfig
+from ..utils import profiling
 
 # +-1 correlation template (tag_decoder_impl.cc:102).
 _PREAMBLE_PM = np.array(TAG_PREAMBLE_BITS_PATTERN, dtype=np.float32) * 2.0 - 1.0
@@ -47,12 +48,12 @@ def preamble_search(frames: torch.Tensor, cfg: ReaderConfig
     at every search offset of frames (..., W) complex64."""
     hb_pos, chips, n_off = sync_positions(cfg)
     dev = frames.device
-    pos = torch.as_tensor(hb_pos, device=dev)[:, None] + torch.arange(n_off, device=dev)
+    pos = profiling.to_device(hb_pos, dev)[:, None] + torch.arange(n_off, device=dev)
     x = frames[..., pos]                                 # (..., n_hb, n_off)
-    pm = torch.as_tensor(_PREAMBLE_PM, device=dev)[:, None]
+    pm = profiling.to_device(_PREAMBLE_PM, dev)[:, None]
     corr_re = (x.real * pm).sum(dim=-2)
     corr_im = (x.imag * pm).sum(dim=-2)
-    h_all = x[..., torch.as_tensor(chips, device=dev), :].mean(dim=-2)
+    h_all = x[..., profiling.to_device(chips, dev), :].mean(dim=-2)
     return corr_re ** 2 + corr_im ** 2, h_all
 
 

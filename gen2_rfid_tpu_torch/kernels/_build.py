@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -33,6 +34,9 @@ NVCC_FLAGS = (
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's register / shared-memory report of each library built by this process.
 build_logs: Dict[str, str] = {}
+# Wall seconds of each library built by this process: from the start of its
+# nvcc to when the build saw it end (0 libraries on a tree built before).
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -63,6 +67,7 @@ def build(names: Iterable[str] = SOURCES) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = []
+    t0 = time.perf_counter()
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -71,6 +76,7 @@ def build(names: Iterable[str] = SOURCES) -> None:
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
         build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")

@@ -43,6 +43,7 @@ from ..dsp.interference import cancel_cw_planar
 from ..kernels.gate_front import front_taps, gate_front_for_cfg, gate_front_y_for_cfg
 from ..kernels.gate_stack import gate_stack_for_cfg
 from ..protocol.crc import crc16_affine
+from ..utils import profiling
 from .frames import extract_windows, gather_aligned_windows_multi
 from .softfix import recover_epc_batch
 from .stats import N_TAG_BINS, InventoryStats
@@ -94,7 +95,7 @@ def expected_pulse_counts(cfg: ReaderConfig) -> np.ndarray:
 def classify_commands(n_pulses: torch.Tensor, cfg: ReaderConfig) -> torch.Tensor:
     """Command type per event from its pulse count: within +-1 of a unique
     expected count, else CMD_UNKNOWN (inventory.py:90-106)."""
-    table = torch.as_tensor(expected_pulse_counts(cfg), device=n_pulses.device)
+    table = profiling.to_device(expected_pulse_counts(cfg), n_pulses.device)
     diff = (n_pulses[:, None] - table[None, :]).abs()
     best = torch.argmin(diff, dim=1).to(_I32)
     dmin = diff.min(dim=1).values
@@ -125,7 +126,7 @@ def _gf2_product(bits: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     """bits (E, K) 0/1 @ m (K, C) 0/1 as exact integer counts.  The product
     runs in float32 (CUDA has no integer matmul): every term is 0 or 1 and
     every sum is at most K, exact in float32 even with TF32 inputs."""
-    mt = torch.as_tensor(m, dtype=torch.float32, device=bits.device)
+    mt = profiling.to_device(m, bits.device, torch.float32)
     return torch.matmul(bits.to(torch.float32), mt).round().to(_I32)
 
 
@@ -133,8 +134,8 @@ def check_epc_crc_batch(epc_bits: torch.Tensor) -> torch.Tensor:
     """Fixed-length CRC-16 check of (E, n_bits) frames -> (E,) bool."""
     n_data = epc_bits.shape[1] - 16
     m, c0 = crc16_affine(n_data)
-    crc = (_gf2_product(epc_bits[:, :n_data], m.T) % 2) ^ torch.as_tensor(
-        c0.astype(np.int32), device=epc_bits.device)[None, :]
+    crc = (_gf2_product(epc_bits[:, :n_data], m.T) % 2) ^ profiling.to_device(
+        c0.astype(np.int32), epc_bits.device)[None, :]
     return torch.all(crc == epc_bits[:, n_data:], dim=1)
 
 
@@ -163,22 +164,22 @@ def check_epc_crc_pc(epc_bits: torch.Tensor):
     n_bits = epc_bits.shape[1]
     dev = epc_bits.device
     m_all, c0_all, r_all, id_all, l_max = _pc_length_tables(n_bits)
-    crc_all = (_gf2_product(epc_bits, m_all) % 2) ^ torch.as_tensor(c0_all, device=dev)
+    crc_all = (_gf2_product(epc_bits, m_all) % 2) ^ profiling.to_device(c0_all, dev)
     rec_all = _gf2_product(epc_bits, r_all)
     match = torch.all((crc_all == rec_all).reshape(-1, l_max + 1, 16), dim=2)
     ids = _gf2_product(epc_bits, id_all).reshape(-1, l_max + 1, 8)
-    w5 = torch.as_tensor(2 ** np.arange(4, -1, -1), device=dev)
+    w5 = profiling.to_device(2 ** np.arange(4, -1, -1), dev)
     l_parsed = (epc_bits[:, :5].to(torch.int64) * w5).sum(dim=1)
     lc = torch.clamp(l_parsed, 0, l_max)
     ok = match.gather(1, lc[:, None])[:, 0] & (l_parsed <= l_max)
-    w8 = torch.as_tensor(2 ** np.arange(7, -1, -1), device=dev)
+    w8 = profiling.to_device(2 ** np.arange(7, -1, -1), dev)
     tid = (ids[torch.arange(ids.shape[0], device=dev), lc].to(torch.int64) * w8).sum(dim=1)
     return ok, tid.to(_I32), l_parsed.to(_I32)
 
 
 def _tag_ids(epc_bits: torch.Tensor) -> torch.Tensor:
     """Reference tag id: EPC frame bits[104:112] as an integer."""
-    w8 = torch.as_tensor(2 ** np.arange(7, -1, -1), device=epc_bits.device)
+    w8 = profiling.to_device(2 ** np.arange(7, -1, -1), epc_bits.device)
     return (epc_bits[:, 104:112].to(torch.int64) * w8).sum(dim=1).to(_I32)
 
 
@@ -264,6 +265,7 @@ def _decode_events_paranoid(y, events: GateEvents, cmd, cfg) -> DecodedEvents:
     )
 
 
+@profiling.spanned("gen2.decode_events")
 def decode_events(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
                   specialize: bool = False, overflow_fallback: bool = True
                   ) -> DecodedEvents:
@@ -281,8 +283,8 @@ def decode_events(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
     cap_q = min(cap, cap // 2 + 1 + ROLE_SLACK)
     role_q, role_a = command_roles(cmd, events.valid)
     if overflow_fallback and cap_q != cap:
-        n_q = int(role_q.sum())
-        n_a = int(role_a.sum())
+        n_q = profiling.host_read(role_q.sum())
+        n_a = profiling.host_read(role_a.sum())
         if n_q > cap_q or n_a > cap_q:
             return _decode_events_paranoid(y, events, cmd, cfg)
     dec = _decode_specialized(y[None], GateEvents(*(t[None] for t in events)), cmd[None],
@@ -369,6 +371,7 @@ def _decode_specialized(y_c, events_c: GateEvents, cmd, role_q, role_a, cap_q: i
     )
 
 
+@profiling.spanned("gen2.decode_events")
 def decode_events_multi(y_c: torch.Tensor, events_c: GateEvents, cfg: ReaderConfig
                         ) -> DecodedEvents:
     """Role-specialized decode of C channels' event tables as one flat batch
@@ -389,9 +392,9 @@ def replay_inventory_scan(dec: DecodedEvents, cfg: ReaderConfig) -> InventorySta
     (inventory.py:624-715; tag_decoder_impl.cc:256-394, gate_impl.cc:101-109).
     It walks the table on the host: a few integer updates per event."""
     idx, valid, rn_fit, epc_fit, ok, tid, sstate, ctype = (
-        t.cpu().numpy() for t in (dec.index, dec.valid, dec.rn16_fits,
-                                  dec.epc_fits, dec.epc_pass, dec.tag_id,
-                                  dec.slot_state, dec.cmd_type))
+        profiling.host_read(t) for t in (dec.index, dec.valid, dec.rn16_fits,
+                                         dec.epc_fits, dec.epc_pass, dec.tag_id,
+                                         dec.slot_state, dec.cmd_type))
     e = idx.shape[0]
     max_slot = cfg.max_slot_number
     ptr, slot, rnd, n_q, n_ok, n_uni, n_rounds = 0, 1, 1, 0, 0, 0, 0
@@ -435,7 +438,7 @@ def replay_inventory_scan(dec: DecodedEvents, cfg: ReaderConfig) -> InventorySta
     dev = dec.index.device
 
     def t(v, dtype=_I32):
-        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+        return profiling.to_device(np.asarray(v), dev, dtype)
 
     return InventoryStats(
         n_queries=t(n_q), cur_inventory_round=t(rnd), cur_slot=t(slot),
@@ -478,8 +481,9 @@ def _replay_fast_ok(dec: DecodedEvents, cfg: ReaderConfig) -> bool:
     n_q = (proc & role_q).sum()
     reads = _tag_histogram(proc & role_epc & dec.epc_pass, dec.tag_id)
     n_uni = (reads > 0).sum()
-    return bool(all_known & ~refit_after_unfit & torch.all(gap_ok)
-                & (n_q <= cfg.max_num_queries) & (n_uni <= cfg.max_unique_tags))
+    return profiling.host_read(all_known & ~refit_after_unfit & torch.all(gap_ok)
+                               & (n_q <= cfg.max_num_queries)
+                               & (n_uni <= cfg.max_unique_tags))
 
 
 def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
@@ -526,14 +530,20 @@ def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     )
 
 
-def replay_inventory(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
-    """Round FSM replay: the closed form when its preconditions hold, else
-    the exact sequential scan (inventory.py:772-797)."""
+def _replay(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     if _replay_fast_ok(dec, cfg):
         return _replay_fast_stats(dec, cfg)
     return replay_inventory_scan(dec, cfg)
 
 
+@profiling.spanned("gen2.replay")
+def replay_inventory(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
+    """Round FSM replay: the closed form when its preconditions hold, else
+    the exact sequential scan (inventory.py:772-797)."""
+    return _replay(dec, cfg)
+
+
+@profiling.spanned("gen2.replay")
 def replay_inventory_batch(dec_c: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     """Per-channel replay of (C, cap) tables, each stats leaf stacked on a
     leading channel axis (inventory.py:750-769): the closed form for every
@@ -543,7 +553,7 @@ def replay_inventory_batch(dec_c: DecodedEvents, cfg: ReaderConfig) -> Inventory
     if all(_replay_fast_ok(d, cfg) for d in decs):
         stats = [_replay_fast_stats(d, cfg) for d in decs]
     else:
-        stats = [replay_inventory(d, cfg) for d in decs]
+        stats = [_replay(d, cfg) for d in decs]
     return InventoryStats(*(torch.stack(f) for f in zip(*stats)))
 
 
@@ -600,22 +610,31 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
     compat mode and ``exact_gate`` take y, |y| and the windowed |y| sum from
     the full build and gate on |y| and avg = sum / win_length, which is the
     JAX package's ``pallas_front`` path.  Runs on CUDA unless ``device``
-    says otherwise."""
+    says otherwise.  The call is the span ``gen2.decode_capture`` and the
+    front end ``gen2.front`` (utils/profiling.py)."""
     dev = resolve_device(device)
     decodes["capture"] += 1
-    x2 = torch.as_tensor(iq2, dtype=torch.float32).to(dev).contiguous()
-    if cfg.cancel_cw:
-        x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()
-    if exact_gate or cfg.mode == "compat":
-        y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
-        y = torch.complex(y2[0], y2[1])
-        # A tensor divisor keeps the division IEEE on CUDA (PyTorch turns
-        # division by a Python scalar into a reciprocal multiply there).
-        avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
-                                    device=dev)
-        return decode_block(y, cfg, exact_gate=exact_gate, amp=amp, avg=avg)
-    y2 = gate_front_y_for_cfg(x2, cfg)
-    return decode_block(torch.complex(y2[0], y2[1]), cfg, gate_stack_for_cfg(y2, cfg))
+    with profiling.span("gen2.decode_capture", allocator=dev, samples=np.shape(iq2)[-1]):
+        with profiling.span("gen2.front"):
+            x2 = torch.as_tensor(iq2, dtype=torch.float32)
+            if x2.device.type == "cpu" and dev.type == "cuda":
+                x2 = profiling.to_device(x2, dev)
+            x2 = x2.to(dev).contiguous()
+            if cfg.cancel_cw:
+                x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()
+            flags = amp = avg = None
+            if exact_gate or cfg.mode == "compat":
+                y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
+                y = torch.complex(y2[0], y2[1])
+                # A tensor divisor keeps the division IEEE on CUDA (PyTorch
+                # turns division by a Python scalar into a reciprocal
+                # multiply there).
+                avg = avgsum / profiling.to_device(float(cfg.win_length), dev, torch.float32)
+            else:
+                y2 = gate_front_y_for_cfg(x2, cfg)
+                y = torch.complex(y2[0], y2[1])
+                flags = gate_stack_for_cfg(y2, cfg)
+        return decode_block(y, cfg, flags, exact_gate, amp, avg)
 
 
 def to_planar(iq) -> torch.Tensor:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
+from ..utils import profiling
 
 
 def _pair_indices(k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -45,7 +46,7 @@ def candidate_flips(bits: torch.Tensor, rel: torch.Tensor, k: int,
     masks = ar[None, None, :] == idx[:, :, None]          # (E, k, n)
     if fm0_pairs:
         masks = masks | (ar[None, None, :] == idx[:, :, None] + 1)
-    pi, pj = (torch.as_tensor(v, device=dev) for v in _pair_indices(k))
+    pi, pj = (profiling.to_device(v, dev) for v in _pair_indices(k))
     all_masks = torch.cat([masks, masks[:, pi] ^ masks[:, pj]], dim=1)
     cost = torch.cat([relk, relk[:, pi] + relk[:, pj]], dim=1)
     cands = bits[:, None, :].to(torch.int32) ^ all_masks.to(torch.int32)

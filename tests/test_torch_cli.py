@@ -286,7 +286,7 @@ def test_main_turns_tf32_off(capsys, caps, monkeypatch):
 
 def test_parser_has_every_decode_flag_of_the_jax_cli():
     """Every subcommand's options are the JAX CLI's, live's too; the port
-    adds only --device."""
+    adds only --device, and decode's --trace-dir (its profiler trace)."""
     from gen2_rfid_tpu.apps.reader import build_parser as ref_parser
 
     def options(p):
@@ -300,7 +300,8 @@ def test_parser_has_every_decode_flag_of_the_jax_cli():
     assert top == ref_top | {"--device"}
     assert set(cmds) == set(ref_cmds)
     for name, opts in cmds.items():
-        assert opts == ref_cmds[name], name
+        added = {"--trace-dir"} if name == "decode" else set()
+        assert opts == ref_cmds[name] | added, name
 
 
 @pytest.mark.parametrize("argv,want", [

@@ -1004,3 +1004,96 @@ def test_bench_twin_on_card(cuda, twin, argv):
         assert got["metric"] == want["metric"] and got["epcs"] == want["epcs"] > 0
         assert got["device"] == torch.cuda.get_device_name(0) and want["device"] == "cpu"
         assert got["power_limit_w"] is not None and got["decodes"] == 2
+
+
+# ---- the span recorder on the card ---------------------------------------------------
+
+SYNC_SPANS = ("gen2.host_read", "gen2.host_copy")
+STAGES = ("gen2.front", "gen2.gate", "gen2.decode_events", "gen2.replay")
+
+
+@pytest.fixture(scope="module")
+def bench_workload():
+    """The bench capture (9.7 M samples) on the card, decoded once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from gen2_rfid_tpu_torch.tools.bench import FLAGSHIP
+
+    w = FLAGSHIP.workload(torch.device("cuda"))
+    assert int(w.decode(w.x2)[0].n_epc_correct) == w.epcs[0]
+    torch.cuda.synchronize()
+    return w
+
+
+def test_spans_cover_every_sync_of_a_decode(bench_workload):
+    """Each synchronizing call that the sync debug mode reports over one
+    decode, past those it reports over an empty block (turning the mode on
+    and off), is made inside the recorder's helpers, and there are as many
+    as host-sync spans."""
+    import collections
+    import warnings
+
+    from gen2_rfid_tpu_torch.utils import profiling
+
+    def reported(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
+                                   if "synchroniz" in str(w.message))
+
+    empty = reported(lambda: None)
+    with profiling.recording():
+        during = reported(lambda: bench_workload.decode(bench_workload.x2))
+    syncs = during - empty
+    rows = profiling.spans()
+    assert [r["name"] for r in rows if r["parent"] is None] == ["gen2.decode_capture"]
+    assert sum(syncs.values()) == sum(r["name"] in SYNC_SPANS for r in rows) > 0, syncs
+    assert all(loc.rsplit(":", 1)[0].endswith("utils/profiling.py") for loc in syncs), syncs
+
+
+def test_stage_device_times_sum_to_the_root(bench_workload):
+    from gen2_rfid_tpu_torch.utils import profiling
+
+    with profiling.recording():
+        bench_workload.decode(bench_workload.x2)
+    rows = profiling.spans()
+    root = [r for r in rows if r["parent"] is None]
+    assert len(root) == 1
+    stages = [r for r in rows if r["parent"] == root[0]["index"]]
+    assert [r["name"] for r in stages] == list(STAGES)
+    total = sum(r["device_ms"] for r in stages)
+    assert total == pytest.approx(root[0]["device_ms"], rel=0.05)
+    assert root[0]["attrs"]["samples"] == bench_workload.x2.shape[1]
+    assert root[0]["attrs"]["segment_allocs"] >= 0
+
+
+def test_recording_adds_no_sync(bench_workload, tmp_path):
+    """Under the profiler (which turns the recorder on) a decode's window
+    holds one ``cudaStreamSynchronize`` a host-sync span and no
+    ``cudaDeviceSynchronize``: the spans add none."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gen2_rfid_tpu_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("test.decode"):
+            bench_workload.decode(bench_workload.x2)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    win = next(e for e in events if e["name"] == "test.decode"
+               and e.get("cat") == "user_annotation")
+    inside = [e for e in events if e.get("cat") == "cuda_runtime"
+              and win["ts"] <= e["ts"] <= win["ts"] + win["dur"]]
+    names = [e["name"] for e in inside]
+    n_spans = sum(r["name"] in SYNC_SPANS for r in profiling.spans())
+    assert names.count("cudaDeviceSynchronize") == 0
+    assert names.count("cudaStreamSynchronize") == n_spans > 0
