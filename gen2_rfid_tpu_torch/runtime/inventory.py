@@ -486,6 +486,19 @@ def _replay_fast_ok(dec: DecodedEvents, cfg: ReaderConfig) -> bool:
                                & (n_uni <= cfg.max_unique_tags))
 
 
+def _first_passes(passed: torch.Tensor, tag_id: torch.Tensor) -> torch.Tensor:
+    """Rows that are the first pass of their tag id in the table: each tag
+    id's least passed row, by a scatter-min of row numbers into its bin.
+    O(E), where the JAX package's cumsum of an (E, 257) one-hot
+    (inventory.py:829-836) is O(E * 257); the same flags, with no sync."""
+    e = passed.shape[0]
+    rows = torch.arange(e, device=passed.device)
+    tid = torch.where(passed, tag_id, N_TAG_BINS).to(torch.int64)
+    first = torch.full((N_TAG_BINS + 1,), e, dtype=torch.int64, device=passed.device
+                       ).scatter_reduce_(0, tid, rows, "amin")
+    return passed & (first[tid] == rows)
+
+
 def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     """Closed-form replay for well-formed tables (inventory.py:800-862)."""
     e = dec.index.shape[0]
@@ -497,13 +510,7 @@ def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     epc_proc = proc & role_epc
     a = epc_proc.sum(dtype=_I32)
     n_rounds = a // max_slot
-    # A read is new when it is the first pass of its tag id in the table.
-    tid = torch.where(passed, dec.tag_id, N_TAG_BINS).to(torch.int64)
-    onehot = torch.nn.functional.one_hot(tid, N_TAG_BINS + 1).to(_I32)
-    seen = torch.cumsum(onehot, 0, dtype=_I32)[
-        torch.arange(e, device=dev), torch.clamp(dec.tag_id.to(torch.int64), max=N_TAG_BINS)]
-    new_flag = passed & (seen == 1)
-    uni_run = torch.cumsum(new_flag.to(_I32), 0, dtype=_I32)
+    uni_run = torch.cumsum(_first_passes(passed, dec.tag_id).to(_I32), 0, dtype=_I32)
     epc_rank = torch.cumsum(epc_proc.to(_I32), 0, dtype=_I32)      # 1-based
     wrap = epc_proc & (epc_rank % max_slot == 0)
     round_idx = torch.where(wrap, epc_rank // max_slot - 1, e).to(torch.int64)
@@ -530,9 +537,16 @@ def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     )
 
 
+# Tables replayed, by route: the closed form, or the sequential scan when
+# its preconditions fail.  Host ints, counted without a sync.
+replays = {"closed_form": 0, "scan": 0}
+
+
 def _replay(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     if _replay_fast_ok(dec, cfg):
+        replays["closed_form"] += 1
         return _replay_fast_stats(dec, cfg)
+    replays["scan"] += 1
     return replay_inventory_scan(dec, cfg)
 
 
@@ -551,6 +565,7 @@ def replay_inventory_batch(dec_c: DecodedEvents, cfg: ReaderConfig) -> Inventory
     channel by channel.  The same stats as replaying each channel alone."""
     decs = [DecodedEvents(*(f[k] for f in dec_c)) for k in range(dec_c.index.shape[0])]
     if all(_replay_fast_ok(d, cfg) for d in decs):
+        replays["closed_form"] += len(decs)
         stats = [_replay_fast_stats(d, cfg) for d in decs]
     else:
         stats = [_replay(d, cfg) for d in decs]

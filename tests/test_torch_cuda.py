@@ -1006,6 +1006,44 @@ def test_bench_twin_on_card(cuda, twin, argv):
         assert got["power_limit_w"] is not None and got["decodes"] == 2
 
 
+# ---- the replay on the card ----------------------------------------------------------
+
+def test_closed_form_replay_on_card_at_the_cell_length(cuda):
+    """The closed-form replay's scatter-min at the benchmark cell's table
+    length, E 36,864: the first passes of 256 tag ids spread along the
+    table, later passes drawn from the ids already read, failed CRCs with
+    any id.  The card's stats equal the CPU's replay and the sequential
+    scan's, through the closed form."""
+    from gen2_rfid_tpu_torch import carry
+    from gen2_rfid_tpu_torch.runtime import inventory as inv
+    from torch_compare import assert_same_stats, replay_table
+
+    cfg = ReaderConfig(fixed_q=2, max_num_queries=100_000, max_unique_tags=1_000)
+    n = 36_864 // 2
+    rng = np.random.default_rng(n)
+    ids = rng.permutation(256)
+    firsts = set(np.sort(rng.choice(np.arange(1, n), 255, replace=False)).tolist()) | {0}
+    rows, read = [], 0
+    for k in range(n):
+        if k in firsts:
+            read += 1
+            rows += [None, (int(ids[read - 1]), True)]
+        elif rng.random() < 0.8:
+            rows += [None, (int(ids[rng.integers(0, read)]), True)]
+        else:
+            rows += [None, (int(rng.integers(0, 256)), False)]
+    fields = replay_table(rows, cfg)
+    host = carry.decoded_from_numpy(fields)
+    before = dict(inv.replays)
+    got = inv.replay_inventory(carry.decoded_from_numpy(fields, cuda), cfg)
+    torch.cuda.synchronize()
+    assert inv.replays == {"closed_form": before["closed_form"] + 1, "scan": before["scan"]}
+    want = inv.replay_inventory(host, cfg)
+    assert int((want.tag_reads > 0).sum()) == 256
+    assert_same_stats(got, want)
+    assert_same_stats(got, inv.replay_inventory_scan(host, cfg))
+
+
 # ---- the span recorder on the card ---------------------------------------------------
 
 SYNC_SPANS = ("gen2.host_read", "gen2.host_copy")

@@ -144,6 +144,14 @@ def test_golden_replay_fast_equals_scan(golden):
     assert_same_stats(inv.replay_inventory_scan(dec, cfg), stats)
 
 
+def test_golden_decode_counts_one_closed_form_replay(golden):
+    cfg, _, tr, stats, _, _, _ = golden
+    before = dict(inv.replays)
+    got, _ = inv.decode_capture(tr.iq, cfg, device="cpu")
+    assert inv.replays == {"closed_form": before["closed_form"] + 1, "scan": before["scan"]}
+    assert_same_stats(got, stats)
+
+
 # ---- other captures -----------------------------------------------------
 
 def _end_to_end(ref_cfg, iq):
@@ -223,10 +231,9 @@ def test_overflow_falls_back_to_paranoid_decode():
     assert int(stats.n_queries) == 48 and int(stats.n_epc_correct) == 0
 
 
-def test_spurious_event_forces_scan_replay():
-    """tests/test_anomalies.py's injected unclassifiable event: the closed
-    form's preconditions fail, the sequential scan replays the table, and
-    the stats equal the reference's."""
+def _spurious_table():
+    """tests/test_anomalies.py's injected unclassifiable event: the table
+    decoded by the port and by the reference."""
     cfg, ref_cfg, y, ev = _anomaly_scene()
     idx = np.asarray(ev.index)
     j = int(ev.n_events)
@@ -238,12 +245,27 @@ def test_spurious_event_forces_scan_replay():
     ev = jax.tree.map(lambda a: a[order] if a.ndim == 1 else a, ev)
     want_dec = ref_decode_events(jnp.asarray(y.numpy()), ev, ref_cfg, specialize=True)
     dec = inv.decode_events(y, carry.events_from_numpy(ev), cfg, specialize=True)
+    return cfg, ref_cfg, dec, want_dec
+
+
+def test_spurious_event_forces_scan_replay():
+    """tests/test_anomalies.py's injected unclassifiable event: the closed
+    form's preconditions fail, the sequential scan replays the table, and
+    the stats equal the reference's."""
+    cfg, ref_cfg, dec, want_dec = _spurious_table()
     assert_same_decoded(dec, want_dec)
     assert int(dec.cmd_type[2]) == inv.CMD_UNKNOWN
     assert not inv._replay_fast_ok(dec, cfg)
     stats = inv.replay_inventory(dec, cfg)
     assert_same_stats(stats, ref_replay(want_dec, ref_cfg))
     assert int(stats.n_epc_correct) == 8
+
+
+def test_spurious_event_counts_one_scan_replay():
+    cfg, _, dec, _ = _spurious_table()
+    before = dict(inv.replays)
+    inv.replay_inventory(dec, cfg)
+    assert inv.replays == {"closed_form": before["closed_form"], "scan": before["scan"] + 1}
 
 
 @pytest.mark.parametrize("drop", [(5,), (4,), (2, 3, 9)])

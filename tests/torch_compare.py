@@ -86,6 +86,37 @@ def assert_same_events(got, want):
                                np.asarray(want.noise_var)[v], rtol=1e-4)
 
 
+def replay_table(rows, cfg, capacity=None):
+    """A well-formed decoded table for the replay, as a dict of numpy arrays
+    under DecodedEvents' fields: each of the (at least one) ``rows`` is None
+    for a QueryRep (an RN16 window, slot single) or ``(tag_id, crc_ok)``
+    for an ACK (an EPC window), each event a window after the last, every
+    window fitting; invalid rows pad the table to ``capacity``."""
+    from gen2_rfid_tpu_torch.runtime.inventory import CMD_ACK, CMD_QREP
+
+    e = len(rows)
+    pad = (capacity or e) - e
+    acks = [r for r in rows if r is not None]
+    ack = np.array([r is not None for r in rows] + [False] * pad)
+    valid = np.array([True] * e + [False] * pad)
+    window = np.where(ack, cfg.epc_window, cfg.rn16_window) + 3
+    index = 100 + np.concatenate([[0], np.cumsum(window[:-1])])
+    index[e:] = index[e - 1] + window[e - 1]
+    tag, ok = np.zeros(e + pad, np.int32), np.zeros(e + pad, bool)
+    tag[ack], ok[ack] = [t for t, _ in acks], [c for _, c in acks]
+    n = e + pad
+    return {
+        "index": index.astype(np.int32), "valid": valid, "rn16_fits": valid.copy(),
+        "epc_fits": valid.copy(), "rn16_bits": np.zeros((n, 16), np.int32),
+        "epc_bits": np.zeros((n, 128), np.int32), "epc_pass": ok,
+        "tag_id": tag, "t_half": np.ones(n, np.float32),
+        "h_est": np.zeros((n, 2), np.float32),
+        "slot_state": (valid & ~ack).astype(np.int32),
+        "rn16_energy": np.zeros(n, np.float32), "rn16_margin": np.zeros(n, np.float32),
+        "cmd_type": np.where(ack, CMD_ACK, CMD_QREP).astype(np.int32),
+    }
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the module that imports this fixture: its
