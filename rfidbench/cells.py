@@ -1,9 +1,10 @@
 """Finding a cell's pieces by name: its entry in ``BENCHMARK.json``, its
-configuration (``configs/<config>.json``), its traffic (``traffic/<traffic>.json``
-and the generator module that file names), its workload file
-(``workloads/<cell>.json``) and the per-layer readers (``metrics/<metric>.py``).
-A cell, configuration, traffic or metric is added by adding its files and
-its entry; nothing here names one.
+configuration (``configs/<config>.json``) with the slot rule it gives the
+reference, its traffic (``traffic/<traffic>.json`` and the generator module
+that file names), its workload file (``workloads/<cell>.json``) and the
+per-layer readers (``metrics/<metric>.py``).  A cell, configuration,
+traffic or metric is added by adding its files and its entry; nothing here
+names one.
 """
 
 from __future__ import annotations
@@ -11,8 +12,11 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import math
 from pathlib import Path
 from typing import Callable, Dict, List, NamedTuple
+
+from .reference.decode import SlotRule
 
 ROOT = Path(__file__).resolve().parent
 
@@ -25,11 +29,41 @@ class Cell(NamedTuple):
     workload: dict       # workloads/<name>.json
     end_to_end: List[dict]
     per_layer: List[dict]
+    slot_rule: SlotRule  # the configuration's ``slot_rule``, the reference's slot verdict
 
 
 def _json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def _number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool) and math.isfinite(v)
+
+
+def slot_rule(config: dict, path: Path) -> SlotRule:
+    """The configuration's top-level ``slot_rule``: ``margin_min`` and
+    ``excess`` ([low, high], in |h|^2), and an optional ``why``.  A
+    configuration without one gets ``SlotRule()``, the rule fitted to FM0.
+    A rule with an unknown key, a missing or non-finite number, or
+    ``excess`` not a pair with low <= high is refused, naming ``path``."""
+    spec = config.get("slot_rule")
+    if spec is None:
+        return SlotRule()
+    if not isinstance(spec, dict):
+        raise ValueError(f"{path}: slot_rule is not an object")
+    unknown = sorted(set(spec) - set(SlotRule._fields) - {"why"})
+    missing = sorted(set(SlotRule._fields) - set(spec))
+    if unknown or missing:
+        raise ValueError(f"{path}: slot_rule has unknown keys {unknown}, misses {missing}")
+    excess = spec["excess"]
+    if not (_number(spec["margin_min"]) and isinstance(excess, list) and len(excess) == 2
+            and all(map(_number, excess))):
+        raise ValueError(f"{path}: slot_rule needs finite numbers margin_min and "
+                         f"excess [low, high]: {spec}")
+    if excess[0] > excess[1]:
+        raise ValueError(f"{path}: slot_rule's excess {excess} has low > high")
+    return SlotRule(float(spec["margin_min"]), (float(excess[0]), float(excess[1])))
 
 
 def load_cell(name: str, benchmark_path: str = "BENCHMARK.json", root: Path = ROOT) -> Cell:
@@ -43,11 +77,13 @@ def load_cell(name: str, benchmark_path: str = "BENCHMARK.json", root: Path = RO
     def applies(metric):
         return "workloads" not in metric or name in metric["workloads"]
 
-    return Cell(name, entry, _json(root / "configs" / f"{entry['config']}.json"),
-                _json(root / "traffic" / f"{entry['traffic']}.json"),
+    config_path = root / "configs" / f"{entry['config']}.json"
+    config = _json(config_path)
+    return Cell(name, entry, config, _json(root / "traffic" / f"{entry['traffic']}.json"),
                 _json(root / "workloads" / f"{name}.json"),
                 [m for m in bench["end_to_end"] if applies(m)],
-                [m for m in bench["per_layer"] if applies(m)])
+                [m for m in bench["per_layer"] if applies(m)],
+                slot_rule(config, config_path))
 
 
 def reader_fields(cell: Cell) -> Dict:

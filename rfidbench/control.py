@@ -7,7 +7,9 @@ decodes of each against the float32 reference (``rfidbench/reference``):
 the program's timed entry, ``decode_capture_planar`` (the lower reading:
 what sound runs give), and the control, the reference itself with its
 front end in bfloat16, the next precision below the float32 the
-configurations state (the upper reading: what the comparison must reject).
+configurations state (the upper reading: what the comparison must reject);
+both references give each slot its verdict by the configuration's
+``slot_rule``.
 It prints one JSON line a seed with both sets of checks, worst over the
 captures.  It needs a card, as a run does; the benchmark's own runs do not
 run it.
@@ -42,8 +44,9 @@ def readings(cell, seeds, dev, decode=None):
                 got = decode(cap.x2)
                 misses += int(got[0].n_epc_correct) != cap.epcs
                 got = tuple(type(o)(*(t.cpu() for t in o)) for o in got)
-                want = reference_decode(cap.x2, scfg)
-                low = reference_decode(cap.x2, scfg, front_dtype=torch.bfloat16)
+                want = reference_decode(cap.x2, scfg, slot_rule=cell.slot_rule)
+                low = reference_decode(cap.x2, scfg, front_dtype=torch.bfloat16,
+                                       slot_rule=cell.slot_rule)
                 prog.append(judge.compare(*got, *want, cap.truth))
                 ctl.append(judge.compare(*low, *want, cap.truth))
                 del got, want, low

@@ -101,13 +101,26 @@ def float_gap(got, want) -> float:
     return worst
 
 
+def sent_rows(dec, truth: Truth):
+    """(found, rows): for each command the synthesizer sent, whether the
+    table holds exactly one valid event within ``truth.slack`` of
+    ``truth.delay`` after the command ends, and that event's row (the first
+    valid row where none is found)."""
+    valid = _np(dec.valid)
+    index = _np(dec.index).astype(np.int64)[valid]
+    at = (np.arange(truth.tiles)[:, None] * truth.tile
+          + np.array([e.cmd_end for e in truth.events])) / truth.decim + truth.delay
+    lo = np.searchsorted(index, at - truth.slack, side="left")
+    found = np.searchsorted(index, at + truth.slack, side="left") - lo == 1
+    return found, np.flatnonzero(valid)[np.where(found, lo, 0)]
+
+
 def truth_rows(dec, truth: Truth) -> int:
     """Commands sent that the table does not hold as sent, plus valid events
     that match no command sent."""
     from .synth.sim.tag import tag_id_of_frame
 
     valid = _np(dec.valid)
-    index = _np(dec.index).astype(np.int64)[valid]
     evs = truth.events
     single = np.array([e.reply_tag is not None and e.reply_bits is not None for e in evs])
     ack = np.array([e.kind == "ack" for e in evs])
@@ -119,12 +132,7 @@ def truth_rows(dec, truth: Truth) -> int:
     tid = np.array([tag_id_of_frame(e.reply_bits) if s and a else -1
                     for e, s, a in zip(evs, single, ack)])
     state = np.where(single, 1, np.where([e.collided for e in evs], 2, 0))
-    at = (np.arange(truth.tiles)[:, None] * truth.tile + np.array([e.cmd_end for e in evs])
-          ) / truth.decim + truth.delay
-    lo = np.searchsorted(index, at - truth.slack, side="left")
-    found = np.searchsorted(index, at + truth.slack, side="left") - lo == 1
-    k = np.where(found, lo, 0)
-    rows = np.flatnonzero(valid)[k]
+    found, rows = sent_rows(dec, truth)
     got = {f: _np(getattr(dec, f))[rows] for f in ("cmd_type", "rn16_bits", "epc_bits",
                                                    "epc_pass", "tag_id", "slot_state")}
     cmd_ok = got["cmd_type"] == np.array([KIND_CMD[e.kind] for e in evs])
@@ -133,9 +141,9 @@ def truth_rows(dec, truth: Truth) -> int:
     ack_ok = np.where(single, epc_ok & got["epc_pass"] & (got["tag_id"] == tid),
                       ~got["epc_pass"])
     reply_ok = np.where(ack, ack_ok, (got["slot_state"] == state) & rn16_ok)
-    used = np.zeros(index.size, dtype=bool)
-    used[k[found]] = True
-    return int((~(found & cmd_ok & reply_ok)).sum() + (~used).sum())
+    used = np.zeros(valid.size, dtype=bool)
+    used[rows[found]] = True
+    return int((~(found & cmd_ok & reply_ok)).sum() + (valid & ~used).sum())
 
 
 def compare(got_stats, got_dec, want_stats, want_dec, truth: Optional[Truth] = None

@@ -16,8 +16,9 @@ soft EPC recovery.
   positions, every sum in float64.
 * ``decode``: the command type of each event from its pulse count, every
   event decoded on its own as the window its command opens, the EPC's
-  CRC-16 stepped bit by bit, the slot verdict, and the round replay walked
-  event by event.
+  CRC-16 stepped bit by bit, the slot verdict by the configuration's
+  ``slot_rule`` (``decode.SlotRule``; FM0's where it gives none), and the
+  round replay walked event by event.
 
 It imports nothing of the port: ``decode.decode_capture(x2, cfg)`` takes the
 same planar capture the program is given and a configuration from

@@ -8,7 +8,7 @@ the events in order on the host."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -123,12 +123,31 @@ def check_epc(frames: np.ndarray):
     return ok, tid
 
 
-def slot_state(energy, margin, noise_var, h):
-    """Empty (0) where the RN16 window's power is under four times the
-    noise; else a collision (2) where the margin is under 0.68 or the power
-    over 0.42 |h|^2; else single (1)."""
-    occupied = energy >= 4.0 * noise_var
-    collision = (margin < 0.68) | (energy > 0.42 * torch.clamp(h.abs() ** 2, min=1e-12))
+# An RN16 window is empty where its power is under this many times the
+# noise's, at every link.
+EMPTY_FACTOR = 4.0
+
+
+class SlotRule(NamedTuple):
+    """The thresholds of the slot verdict, a configuration's ``slot_rule``.
+    The defaults are the rule fitted to FM0, which the port's
+    ``classify_slots`` applies at every link."""
+
+    margin_min: float = 0.68
+    excess: Tuple[float, float] = (0.0, 0.42)
+
+
+def slot_state(energy, margin, noise_var, h, rule: SlotRule = SlotRule()):
+    """Empty (0) where the RN16 window's power is under ``EMPTY_FACTOR``
+    times the noise; else a collision (2) where the margin is under
+    ``margin_min`` or the power lies outside ``excess`` times |h|^2; else
+    single (1).  Each threshold is multiplied out, never divided into the
+    power: a power exactly at a threshold keeps the verdict the FM0
+    constants gave it."""
+    occupied = energy >= EMPTY_FACTOR * noise_var
+    h2 = torch.clamp(h.abs() ** 2, min=1e-12)
+    collision = ((margin < rule.margin_min) | (energy > rule.excess[1] * h2)
+                 | (energy < rule.excess[0] * h2))
     return torch.where(occupied, torch.where(collision, 2, 1), 0)
 
 
@@ -166,9 +185,11 @@ def _decode_epc(frames, cfg):
     return bits, t_half, h
 
 
-def decode_events(y: torch.Tensor, ev: Events, cfg) -> Decoded:
-    """Every valid event decoded as the window its command opens.  Fields
-    a row's command does not open are 0 (``slot_state`` -1)."""
+def decode_events(y: torch.Tensor, ev: Events, cfg, slot_rule: SlotRule = SlotRule()
+                  ) -> Decoded:
+    """Every valid event decoded as the window its command opens, each RN16
+    window's slot by ``slot_rule``.  Fields a row's command does not open
+    are 0 (``slot_state`` -1)."""
     n = y.shape[0]
     cap = ev.index.shape[0]
     dev = y.device
@@ -197,7 +218,8 @@ def decode_events(y: torch.Tensor, ev: Events, cfg) -> Decoded:
         out["rn16_margin"][r] = margin
         out["rn16_energy"][r] = energy
         out["h_est"][r] = h
-        out["slot_state"][r] = slot_state(energy, margin, ev.noise_var[r], h).to(_I32)
+        out["slot_state"][r] = slot_state(energy, margin, ev.noise_var[r], h,
+                                        slot_rule).to(_I32)
     for b in range(0, a_rows.size, BLOCK):
         r = torch.as_tensor(a_rows[b: b + BLOCK], device=dev)
         bits, t_half, h = _decode_epc(windows(y, ev, r, cfg.epc_window), cfg)
@@ -275,11 +297,13 @@ def replay(dec: Decoded, cfg) -> Stats:
         cmd_counts=t(cmd_counts))
 
 
-def decode_capture(x2: torch.Tensor, cfg, front_dtype: torch.dtype = _F64):
+def decode_capture(x2: torch.Tensor, cfg, front_dtype: torch.dtype = _F64,
+                   slot_rule: SlotRule = SlotRule()):
     """(Stats, Decoded) of a planar (2, N) float32 ADC-rate capture, on the
-    capture's device.  ``front_dtype=torch.bfloat16`` is the control."""
+    capture's device, its slots by ``slot_rule`` (the configuration's).
+    ``front_dtype=torch.bfloat16`` is the control."""
     check_supported(cfg)
     y = front_y(x2, cfg.decim, front_taps(cfg), front_dtype)
     ev = gate_events(y, cfg, above_threshold(y, cfg.win_length, cfg.thresh_fraction))
-    dec = decode_events(y, ev, cfg)
+    dec = decode_events(y, ev, cfg, slot_rule)
     return replay(dec, cfg), dec

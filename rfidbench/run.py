@@ -19,8 +19,9 @@ and the port, ``gen2_rfid_tpu_torch``.  A run
    ``torch.profiler`` instead and reads the cell's per-layer metrics from
    the trace (``rfidbench/metrics``);
 5. reads the card's peak memory, frees the program's state, decodes each
-   capture with the plain reference (``rfidbench/reference``) and holds the
-   last output of each capture in the loop against it (``rfidbench/judge``);
+   capture with the plain reference (``rfidbench/reference``), its slots by
+   the configuration's ``slot_rule``, and holds the last output of each
+   capture in the loop against it (``rfidbench/judge``);
 6. prints the checks beside their limits as the last lines of standard
    error, and one JSON line on standard output: ``correct``, ``attempted``
    (decodes timed), ``failed`` (those whose EPC count was not the count
@@ -224,7 +225,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev,
         torch.cuda.empty_cache()
     t = time.perf_counter()
     with torch.no_grad():
-        per_capture = [judge.compare(*kept[k], *reference_decode(cap.x2, scfg), cap.truth)
+        per_capture = [judge.compare(*kept[k], *reference_decode(
+            cap.x2, scfg, slot_rule=cell.slot_rule), cap.truth)
                        for k, cap in enumerate(caps)]
     log(f"[rfidbench] setup {setup_s:.4f} s; reference {time.perf_counter() - t:.4f} s")
     checks = judge.checks(per_capture, counts["misses"], cell.workload["limits"])
