@@ -1,10 +1,10 @@
 """Finding a cell's pieces by name: its entry in ``BENCHMARK.json``, its
 configuration (``configs/<config>.json``) with the slot rule it gives the
-reference, its traffic (``traffic/<traffic>.json`` and the generator module
-that file names), its workload file (``workloads/<cell>.json``) and the
-per-layer readers (``metrics/<metric>.py``).  A cell, configuration,
-traffic or metric is added by adding its files and its entry; nothing here
-names one.
+reference and the keywords it gives the synthesizer, its traffic
+(``traffic/<traffic>.json`` and the generator module that file names), its
+workload file (``workloads/<cell>.json``) and the per-layer readers
+(``metrics/<metric>.py``).  A cell, configuration, traffic or metric is
+added by adding its files and its entry; nothing here names one.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ class Cell(NamedTuple):
     end_to_end: List[dict]
     per_layer: List[dict]
     slot_rule: SlotRule  # the configuration's ``slot_rule``, the reference's slot verdict
+    synthesizer: Dict    # the configuration's ``synthesizer`` keywords
 
 
 def _json(path: Path) -> dict:
@@ -66,6 +67,28 @@ def slot_rule(config: dict, path: Path) -> SlotRule:
     return SlotRule(float(spec["margin_min"]), (float(excess[0]), float(excess[1])))
 
 
+SYNTH_KEYS = ("tag_t1_us",)
+
+
+def synthesizer(config: dict, path: Path) -> Dict:
+    """The configuration's top-level ``synthesizer``: keywords the traffic
+    generator hands the synthesizer, ``tag_t1_us`` (how long after the
+    reader's command a tag starts its reply, in us), and an optional
+    ``why``.  A configuration without one keeps the synthesizer's defaults.
+    An unknown key, or a value that is not a finite number above 0, is
+    refused, naming ``path``."""
+    spec = config.get("synthesizer", {})
+    if not isinstance(spec, dict):
+        raise ValueError(f"{path}: synthesizer is not an object")
+    unknown = sorted(set(spec) - set(SYNTH_KEYS) - {"why"})
+    if unknown:
+        raise ValueError(f"{path}: synthesizer has unknown keys {unknown}")
+    out = {k: spec[k] for k in SYNTH_KEYS if k in spec}
+    if not all(_number(v) and v > 0 for v in out.values()):
+        raise ValueError(f"{path}: synthesizer needs finite numbers above 0: {spec}")
+    return {k: float(v) for k, v in out.items()}
+
+
 def load_cell(name: str, benchmark_path: str = "BENCHMARK.json", root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``benchmark_path``, its data files under ``root``."""
     bench = _json(Path(benchmark_path))
@@ -83,7 +106,7 @@ def load_cell(name: str, benchmark_path: str = "BENCHMARK.json", root: Path = RO
                 _json(root / "workloads" / f"{name}.json"),
                 [m for m in bench["end_to_end"] if applies(m)],
                 [m for m in bench["per_layer"] if applies(m)],
-                slot_rule(config, config_path))
+                slot_rule(config, config_path), synthesizer(config, config_path))
 
 
 def reader_fields(cell: Cell) -> Dict:
@@ -95,6 +118,13 @@ def reader_fields(cell: Cell) -> Dict:
 
 def generator(cell: Cell):
     return importlib.import_module(f"rfidbench.traffic.{cell.traffic['generator']}")
+
+
+def captures(cell: Cell, scfg, seed: int, dev) -> list:
+    """The cell's captures at ``seed``: its traffic's generator under the
+    synthesizer's reader configuration ``scfg``, given the configuration's
+    ``synthesizer`` keywords."""
+    return generator(cell).make(cell.traffic, scfg, seed, dev, **cell.synthesizer)
 
 
 def metric_reader(name: str) -> Callable:

@@ -22,7 +22,7 @@ import json
 import sys
 
 from . import judge
-from .cells import generator, load_cell
+from .cells import captures, load_cell
 
 
 def readings(cell, seeds, dev, decode=None):
@@ -37,7 +37,7 @@ def readings(cell, seeds, dev, decode=None):
     decode = decode or entry
     out = []
     for seed in seeds:
-        caps = generator(cell).make(cell.traffic, scfg, seed, dev)
+        caps = captures(cell, scfg, seed, dev)
         prog, ctl, misses = [], [], 0
         with torch.no_grad():
             for cap in caps:

@@ -6,8 +6,9 @@ from the root of a checkout that holds ``BENCHMARK.json``, ``rfidbench/``
 and the port, ``gen2_rfid_tpu_torch``.  A run
 
 1. makes the cell's captures from ``--seed`` with its traffic's generator
-   (the frozen synthesizer of ``rfidbench/synth``) and puts them on the
-   card as planar float32;
+   (the frozen synthesizer of ``rfidbench/synth``, given the
+   configuration's ``synthesizer`` keywords) and puts them on the card as
+   planar float32;
 2. builds the port's ``ReaderConfig`` from the configuration and workload
    files;
 3. warms up: the first decode (which builds or loads the kernels, timed
@@ -65,7 +66,7 @@ from typing import Callable, Dict, Optional  # noqa: E402
 import numpy as np  # noqa: E402
 
 from . import judge  # noqa: E402
-from .cells import Cell, generator, load_cell, metric_reader, reader_fields  # noqa: E402
+from .cells import Cell, captures, load_cell, metric_reader, reader_fields  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "gen2_rfid_tpu")
 
@@ -151,7 +152,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev,
 
     cfg, scfg, entry = program(cell, dev)
     decode = decode or entry
-    caps = generator(cell).make(cell.traffic, scfg, seed, dev)
+    caps = captures(cell, scfg, seed, dev)
 
     timer = Timer(dev)
     last: Dict[int, tuple] = {}

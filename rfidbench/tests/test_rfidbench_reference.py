@@ -11,22 +11,24 @@ import torch
 from gen2_rfid_tpu_torch.config import ReaderConfig as PortConfig
 from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar
 from rfidbench import judge
-from rfidbench.reference.decode import check_epc, command_pulses, command_type, decode_capture
+from rfidbench.reference.decode import (SlotRule, check_epc, command_pulses, command_type,
+                                        decode_capture)
 from rfidbench.reference.front import walk_gate
 from rfidbench.synth.config import ReaderConfig
 from rfidbench.synth.protocol.crc import crc16_bits
 from rfidbench.synth.sim.tag import Tag, tag_id_of_frame
 from rfidbench.synth.sim.trace import synthesize_inventory
 
-from .conftest import TINY_WORKLOAD
+from .conftest import MILLER, TINY_WORKLOAD, faults_are_the_truths, file_config
 
-CONFIGS = {"fm0_blf40_2msps": {}, "miller4_blf40_2msps": {"miller_m": 4, "decim": 1}}
+CONFIGS = {name: file_config(name) for name in ("fm0_blf40_2msps", MILLER)}
 LIMITS = TINY_WORKLOAD["limits"]
 
 
-def inventory(kw, seed, rounds=3):
+def inventory(kw, seed, rounds=3, synth=None):
     cfg = ReaderConfig(**kw)
-    tr = synthesize_inventory(cfg, [Tag.with_id(27, seed=7)], n_rounds=rounds, seed=seed)
+    tr = synthesize_inventory(cfg, [Tag.with_id(27, seed=7)], n_rounds=rounds, seed=seed,
+                              **(synth or {}))
     x2 = torch.from_numpy(np.stack([tr.iq.real, tr.iq.imag]).astype(np.float32))
     taps = int(cfg.tag_bit_us / 2 * cfg.adc_rate / 1e6 / cfg.miller_m)
     truth = judge.Truth(tr.events, x2.shape[1], 1, cfg.decim, max(cfg.n_samples_pw, 1),
@@ -34,8 +36,8 @@ def inventory(kw, seed, rounds=3):
     return x2, truth
 
 
-def capture(kw, seed, rounds=3):
-    return inventory(kw, seed, rounds)[0]
+def capture(kw, seed, rounds=3, synth=None):
+    return inventory(kw, seed, rounds, synth)[0]
 
 
 def checks(got, want, truth=None):
@@ -44,42 +46,48 @@ def checks(got, want, truth=None):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_reference_equals_the_port(name):
-    """The reference, computed apart in float64, agrees with the port's
-    CPU decode on every event, decoded row and stats field, its floats
-    within the limit; the FM0 decode is also what the synthesizer sent."""
-    kw = dict(CONFIGS[name], max_events=64)
-    x2, truth = inventory(kw, 2 ** 31 + 3)
+    """The reference, computed apart in float64 and its slots by the
+    configuration's rule, is what the synthesizer sent; the port's CPU
+    decode agrees with it on every event, float (within a tenth of the
+    limit) and EPC count, and where its decoded rows or stats differ they
+    differ from what was sent too, in slot verdicts alone.  At FM0, whose
+    rule the port applies, they agree everywhere."""
+    fields, rule, synth = CONFIGS[name]
+    kw = dict(fields, max_events=64)
+    x2, truth = inventory(kw, 2 ** 31 + 3, synth=synth)
     got = decode_capture_planar(x2, PortConfig(**kw), device="cpu")
-    want = decode_capture(x2, ReaderConfig(**kw))
+    want = decode_capture(x2, ReaderConfig(**kw), slot_rule=rule)
     assert got[0]._fields == want[0]._fields and got[1]._fields == want[1]._fields
     assert int(want[0].n_epc_correct) == 3
-    result = checks(got, want)
-    assert judge.passed(result), result
-    assert 0 < result["float_gap"]["value"] < LIMITS["float_gap"] / 10
+    result = faults_are_the_truths(got, want, truth, LIMITS)
+    assert 0 < result["float_gap"] < LIMITS["float_gap"] / 10
     if name.startswith("fm0"):
-        assert judge.truth_rows(want[1], truth) == judge.truth_rows(got[1], truth) == 0
+        assert judge.passed(checks(got, want, truth)), result
 
 
 def test_truth_sees_the_miller_slot_verdict():
-    """The port's Miller-4 decode calls every slot a lone tag answered a
-    collision (its RN16 window's power is 1.7 |h|^2, over the 0.42 |h|^2
-    that ``classify_slots`` allows, a threshold set for FM0); the
-    reference, which follows the same rule, agrees with it, and the
-    synthesizer's ground truth counts each such slot."""
-    kw = dict(CONFIGS["miller4_blf40_2msps"], max_events=64)
-    x2, truth = inventory(kw, 2 ** 31 + 3, rounds=4)
-    got = decode_capture_planar(x2, PortConfig(**kw), device="cpu")
-    assert int(got[0].n_slot_collision) == 4 and int(got[0].n_slot_single) == 0
-    assert int(got[0].n_epc_correct) == 4
-    assert judge.truth_rows(got[1], truth) == 4
-    assert judge.truth_rows(got[1]._replace(slot_state=torch.where(
-        got[1].slot_state == 2, 1, got[1].slot_state)), truth) == 0
+    """The ground truth, no program: at Miller-4 the FM0 rule calls every
+    slot a lone tag answered a collision (its RN16 window reads about 1.7
+    |h|^2, over the 0.42 |h|^2 that rule allows), and ``truth_rows`` counts
+    each one; under the configuration's own rule it counts none."""
+    fields, rule, synth = CONFIGS[MILLER]
+    assert rule != SlotRule()
+    kw = dict(fields, max_events=64)
+    x2, truth = inventory(kw, 2 ** 31 + 3, rounds=4, synth=synth)
+    cfg = ReaderConfig(**kw)
+    stats, dec = decode_capture(x2, cfg)
+    assert int(stats.n_slot_collision) == 4 and int(stats.n_slot_single) == 0
+    assert int(stats.n_epc_correct) == 4
+    assert judge.truth_rows(dec, truth) == 4
+    stats, dec = decode_capture(x2, cfg, slot_rule=rule)
+    assert int(stats.n_slot_single) == 4 and int(stats.n_slot_collision) == 0
+    assert judge.truth_rows(dec, truth) == 0
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_rejects_outputs_rounded_to_bfloat16(name):
-    kw = dict(CONFIGS[name], max_events=64)
-    x2 = capture(kw, 5)
+    kw = dict(CONFIGS[name][0], max_events=64)
+    x2 = capture(kw, 5, synth=CONFIGS[name][2])
     stats, dec = decode_capture(x2, ReaderConfig(**kw))
     rounded = dec._replace(**{f: getattr(dec, f).to(torch.bfloat16).to(torch.float64)
                               for f in judge.FLOAT_FIELDS})
@@ -92,9 +100,9 @@ def test_rejects_outputs_rounded_to_bfloat16(name):
 def test_control_fails(name, seed):
     """The control, the reference with its front end in bfloat16, is not
     correct: its float gap is well over the limit."""
-    kw = dict(CONFIGS[name], max_events=64)
+    kw = dict(CONFIGS[name][0], max_events=64)
     cfg = ReaderConfig(**kw)
-    x2 = capture(kw, seed, rounds=4)
+    x2 = capture(kw, seed, rounds=4, synth=CONFIGS[name][2])
     result = checks(decode_capture(x2, cfg, front_dtype=torch.bfloat16), decode_capture(x2, cfg))
     assert not judge.passed(result) and result["float_gap"]["value"] > 10 * LIMITS["float_gap"]
 

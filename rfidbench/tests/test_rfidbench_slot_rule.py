@@ -11,32 +11,58 @@ import pytest
 import torch
 
 from rfidbench import judge
-from rfidbench.cells import ROOT, generator, load_cell, reader_fields
-from rfidbench.reference.decode import SlotRule, decode_capture, slot_state
+from rfidbench.cells import ROOT, captures, generator, load_cell, reader_fields, slot_rule
+from rfidbench.reference.decode import SlotRule, decode_capture, replay, slot_state
 from rfidbench.slot_bands import inventory
 from rfidbench.synth.config import ReaderConfig
 
-from .conftest import add_tiny_cell
+from .conftest import MILLER, SLOT_STATS, add_tiny_cell, judged_run
 
 FM0_RULE = {"margin_min": 0.68, "excess": [0.0, 0.42],
             "why": "the rule fitted to FM0, written out"}
-# A lone Miller tag's RN16 window reads about 1.7 |h|^2 with a margin over 2;
-# collided ones read under 1.6 or over 1.9, or a margin under 2.
-MILLER_BAND = {"margin_min": 2.0, "excess": [1.6, 1.9],
-               "why": "the band a lone Miller-4 tag reads in"}
+# The rule the Miller-4 file states, as the file states it.
+MILLER_RULE = json.loads((ROOT / "configs" / f"{MILLER}.json").read_text())["slot_rule"]
+NOISES = (0.004, 0.016, 0.032)
 
 
 def add_config(root, base: str, name: str, rule=None, **fields) -> None:
     """``configs/<name>.json`` under ``root``: the repository's ``base``
     configuration with ``fields`` set in its reader configuration and
-    ``rule`` as its ``slot_rule``."""
+    ``rule`` as its ``slot_rule``, or no ``slot_rule`` where ``rule`` is
+    None."""
     cfg = json.loads((ROOT / "configs" / f"{base}.json").read_text())
     cfg["name"] = name
     cfg["reader_config"].update(fields)
+    cfg.pop("slot_rule", None)
     if rule is not None:
         cfg["slot_rule"] = rule
     (root / "configs").mkdir(exist_ok=True)
     (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+
+
+def verdict_by(rule: SlotRule):
+    """A wrap of the program's entry (``judged_run``'s ``wrap``) that gives
+    its slots the verdict of ``rule`` from outside the program: each RN16
+    window the program called occupied gets the reference's ``slot_state``
+    under ``rule`` over the program's own power, margin and channel, and
+    the stats the replay derives from slot_state are counted again over
+    them by the reference's ``replay``.  The file's rule stands for a
+    program whose verdict is repaired per M; ``SlotRule()``, for one that
+    applies the FM0 rule at every link."""
+    def wrap(entry, scfg):
+        def decode(x2):
+            stats, dec = entry(x2)
+            h = torch.complex(dec.h_est[:, 0].double(), dec.h_est[:, 1].double())
+            energy = dec.rn16_energy.double()
+            state = slot_state(energy, dec.rn16_margin.double(), torch.zeros_like(energy), h,
+                               rule)
+            dec = dec._replace(slot_state=torch.where(dec.slot_state > 0, state.to(
+                dec.slot_state.dtype), dec.slot_state))
+            counts = replay(dec, scfg)
+            return stats._replace(**{f: getattr(counts, f).to(getattr(stats, f))
+                                     for f in SLOT_STATS}), dec
+        return decode
+    return wrap
 
 
 def cell_of(root, config: str):
@@ -50,15 +76,16 @@ def old_slot_state(energy, margin, noise_var, h):
     return torch.where(occupied, torch.where(collision, 2, 1), 0)
 
 
-@pytest.mark.parametrize("base", ["fm0_blf40_2msps", "miller4_blf40_2msps"])
+@pytest.mark.parametrize("base", ["fm0_blf40_2msps", MILLER])
 def test_no_rule_is_the_fm0_rule_written_out(tmp_path, base):
     """A configuration without ``slot_rule`` decodes bit for bit as the same
     configuration with today's constants written out."""
+    add_config(tmp_path, base, "no_rule")
     add_config(tmp_path, base, "written_out", FM0_RULE)
-    plain, written = cell_of(tmp_path, base), cell_of(tmp_path, "written_out")
+    plain, written = cell_of(tmp_path, "no_rule"), cell_of(tmp_path, "written_out")
     assert plain.slot_rule == written.slot_rule == SlotRule()
     scfg = ReaderConfig(**reader_fields(plain))
-    caps = generator(plain).make(plain.traffic, scfg, 2 ** 31 + 17, torch.device("cpu"))
+    caps = captures(plain, scfg, 2 ** 31 + 17, torch.device("cpu"))
     for cap in caps:
         a = decode_capture(cap.x2, scfg, slot_rule=plain.slot_rule)
         b = decode_capture(cap.x2, scfg, slot_rule=written.slot_rule)
@@ -98,28 +125,33 @@ def test_boundaries_keep_the_old_verdicts():
 
 @pytest.mark.parametrize("seed", [3, 17, 29])
 def test_a_miller_band_added_as_a_file_mends_the_verdict(tmp_path, seed):
-    """A Miller-4 configuration added only as a file (the link that matches
-    the spec: DR 64/3, TRcal 133 us, BLF 160 kHz at 40 kbps) with its band
-    in ``slot_rule``: on four tags at ``fixed_q`` 2 (``slot_bands``'
-    inventory) the reference's slots are what the synthesizer sent.
-    Without the rule, every slot one tag answered alone is a collision."""
-    add_config(tmp_path, "miller4_blf40_2msps", "miller4_band", MILLER_BAND, dr=1,
-               trcal_us=133, fixed_q=2)
-    add_config(tmp_path, "miller4_blf40_2msps", "miller4_plain", dr=1, trcal_us=133, fixed_q=2)
+    """The Miller-4 configuration at the spec's link (DR 64/3, TRcal 133
+    us, BLF 160 kHz at 40 kbps) with the band its file states: on four tags
+    at ``fixed_q`` 2 (``slot_bands``' inventory), at every noise the band
+    was fitted over and with the tags at one phase or spread, the
+    reference's slots are what the synthesizer sent.  The same file without
+    its rule calls every slot one tag answered alone a collision."""
+    add_config(tmp_path, MILLER, "miller4_band", MILLER_RULE, fixed_q=2)
+    add_config(tmp_path, MILLER, "miller4_plain", fixed_q=2)
     band, plain = cell_of(tmp_path, "miller4_band"), cell_of(tmp_path, "miller4_plain")
-    assert band.slot_rule == SlotRule(2.0, (1.6, 1.9))
+    assert band.slot_rule == SlotRule(MILLER_RULE["margin_min"], tuple(MILLER_RULE["excess"]))
+    assert plain.slot_rule == SlotRule()
     cfg = ReaderConfig(**reader_fields(band))
     assert cfg == ReaderConfig(**reader_fields(plain))
-    assert abs(cfg.blf_from_trcal / (cfg.miller_m * cfg.blf_hz) - 1) < 0.01
-    x2, truth = inventory(cfg, seed)
-    lone = sum(e.kind in ("query", "query_rep") and e.reply_tag is not None
-               and e.reply_bits is not None for e in truth.events)
-    assert lone == {3: 9, 17: 7, 29: 11}[seed]
-    stats, dec = decode_capture(x2, cfg, slot_rule=band.slot_rule)
-    assert judge.truth_rows(dec, truth) == 0
-    assert int(stats.n_slot_single) == int(stats.n_epc_correct) == lone > 0
-    stats, dec = decode_capture(x2, cfg, slot_rule=plain.slot_rule)
-    assert judge.truth_rows(dec, truth) == lone and int(stats.n_slot_single) == 0
+    assert cfg.dr == 1 and abs(cfg.blf_from_trcal / (cfg.miller_m * cfg.blf_hz) - 1) < 0.01
+    for noise in NOISES:
+        for step in (None, 1.1):
+            x2, truth = inventory(cfg, seed, noise, step, band.synthesizer)
+            lone = np.array([e.kind in ("query", "query_rep") and e.reply_tag is not None
+                             and e.reply_bits is not None for e in truth.events])
+            assert lone.sum() == {3: 9, 17: 7, 29: 11}[seed]
+            stats, dec = decode_capture(x2, cfg, slot_rule=band.slot_rule)
+            assert judge.truth_rows(dec, truth) == 0, (noise, step)
+            assert int(stats.n_slot_single) == int(stats.n_epc_correct) == lone.sum()
+            stats, dec = decode_capture(x2, cfg, slot_rule=plain.slot_rule)
+            found, rows = judge.sent_rows(dec, truth)
+            assert found[0][lone].all() and (dec.slot_state[rows[0][lone]] == 2).all()
+            assert judge.truth_rows(dec, truth) >= lone.sum()
 
 
 @pytest.mark.parametrize("rule", [
@@ -139,20 +171,71 @@ def test_malformed_rule_is_refused(tmp_path, rule):
         cell_of(tmp_path, "malformed")
 
 
+@pytest.mark.parametrize("synth", [
+    {"tag_t1_us": 130, "t1_us": 128},
+    {"tag_t1_us": "130"},
+    {"tag_t1_us": True},
+    {"tag_t1_us": 0},
+    {"tag_t1_us": float("nan")},
+    [130],
+], ids=["unknown_key", "string", "bool", "zero", "nan", "not_an_object"])
+def test_malformed_synthesizer_is_refused(tmp_path, synth):
+    add_config(tmp_path, "fm0_blf40_2msps", "malformed")
+    path = tmp_path / "configs" / "malformed.json"
+    path.write_text(json.dumps({**json.loads(path.read_text()), "synthesizer": synth}))
+    with pytest.raises(ValueError, match="malformed.json"):
+        cell_of(tmp_path, "malformed")
+
+
+def test_the_tag_delay_reaches_the_synthesizer(tmp_path):
+    """A configuration's ``synthesizer`` keywords reach the synthesizer
+    through the cell's captures: the Miller-4 file's ``tag_t1_us`` moves
+    its replies off where the synthesizer's default puts them, and a file
+    without the key keeps that default."""
+    cell = cell_of(tmp_path, MILLER)
+    assert cell.synthesizer == {"tag_t1_us": 130.0}
+    assert cell_of(tmp_path, "fm0_blf40_2msps").synthesizer == {}
+    scfg = ReaderConfig(**reader_fields(cell))
+    args = (cell.traffic, scfg, 2 ** 31 + 5, torch.device("cpu"))
+    got = captures(cell, *args[1:])
+    given = generator(cell).make(*args, tag_t1_us=130.0)
+    default = generator(cell).make(*args)
+    for a, b, c in zip(got, given, default, strict=True):
+        assert torch.equal(a.x2, b.x2) and not torch.equal(a.x2, c.x2)
+
+
 def test_run_and_control_hand_the_rule_to_the_reference(tmp_path):
     """A whole run and the control's readings judge the program by the
-    configuration's rule: the port, which still calls each lone Miller slot
-    a collision, now differs from the reference in every such slot."""
+    configuration's rule: the reference they hold the port to is what the
+    synthesizer sent, and where the port's rows differ from it they differ
+    from what was sent as often (``faults_are_the_truths``)."""
     from rfidbench.control import readings
-    from rfidbench.run import run
 
-    add_config(tmp_path, "miller4_blf40_2msps", "miller4_band", MILLER_BAND)
-    cell = cell_of(tmp_path, "miller4_band")
-    checks = run(cell, 2 ** 31 + 3, 0.3, False, torch.device("cpu"))["checks"]
-    assert checks["decode_rows"]["value"] == checks["truth_rows"]["value"] == 6
-    assert checks["stats_fields"]["value"] == 2 and checks["event_rows"]["value"] == 0
+    cell = cell_of(tmp_path, MILLER)
+    assert cell.slot_rule != SlotRule()
+    checks = judged_run(cell, 2 ** 31 + 3, 0.3, torch.device("cpu"))["checks"]
+    assert checks["decode_rows"]["value"] == checks["truth_rows"]["value"]
+    assert checks["event_rows"]["value"] == 0
     ((_, prog, _),) = readings(cell, [2 ** 31 + 3], torch.device("cpu"))
-    assert prog["decode_rows"]["value"] == 6
+    assert prog["decode_rows"]["value"] == prog["truth_rows"]["value"] == checks[
+        "truth_rows"]["value"]
+    assert prog["stats_fields"]["value"] == checks["stats_fields"]["value"]
+
+
+def test_a_repaired_port_passes_unchanged(tmp_path):
+    """The harness takes a port whose slot verdict is repaired per M with no
+    edit of its own: the Miller-4 file's tiny cell, the port's slots given
+    the file's rule (``verdict_by``), is ``correct``.  With the FM0 rule at
+    every link in its place, the run is not, and every decoded row it gets
+    wrong is one the ground truth counts."""
+    cell = cell_of(tmp_path, MILLER)
+    assert reader_fields(cell)["miller_m"] > 1
+    for rule, correct in ((cell.slot_rule, True), (SlotRule(), False)):
+        result = judged_run(cell, 2 ** 31 + 11, 0.3, torch.device("cpu"), verdict_by(rule))
+        checks = {k: c["value"] for k, c in result["checks"].items()}
+        assert result["correct"] is correct, checks
+        assert checks["decode_rows"] == checks["truth_rows"]
+        assert (checks["truth_rows"] > 0) is not correct, checks
 
 
 def test_slot_bands_table(capsys):
@@ -165,3 +248,11 @@ def test_slot_bands_table(capsys):
     rows = capsys.readouterr().out.splitlines()[2:]
     assert len(rows) == len(LINKS) * len(PHASES)
     assert all(r.split("|")[7].strip() == "0" for r in rows), rows
+    # ``--fit`` at one noise and seed: a rule the harness takes, inside the
+    # Miller-4 file's, which was fitted over more noises and seeds.
+    assert main(["--fit", "miller4", "--noises", "0.004", "--seeds", "3"]) == 0
+    fitted = json.loads(capsys.readouterr().out)
+    rule = slot_rule({"slot_rule": fitted}, "fitted")
+    assert fitted["why"].endswith("the rule calls 0 collided single")
+    assert MILLER_RULE["margin_min"] <= rule.margin_min
+    assert MILLER_RULE["excess"][0] <= rule.excess[0] <= rule.excess[1] <= MILLER_RULE["excess"][1]

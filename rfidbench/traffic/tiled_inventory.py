@@ -5,7 +5,9 @@ Parameters (the traffic file): ``tags``, each ``{"id": <8-bit tag id>,
 (null keeps the tag model's default); ``rounds``, the inventory rounds
 synthesized; ``tiles``, how many times that inventory is repeated back to
 back on the card; ``captures``, how many such captures a run makes and
-decodes in turn; ``noise``, the receiver's noise amplitude.
+decodes in turn; ``noise``, the receiver's noise amplitude.  The keywords
+a configuration gives the synthesizer (``cells.synthesizer``: the tag's
+reply delay) go to it as they are.
 
 Capture k draws the synthesizer's seed from ``--seed``
 (``numpy.random.SeedSequence``): its noise, and with several tags their
@@ -48,12 +50,12 @@ def _tags(spec) -> List[Tag]:
     return out
 
 
-def make(params: dict, cfg, seed: int, device: torch.device) -> List[Capture]:
+def make(params: dict, cfg, seed: int, device: torch.device, **synth) -> List[Capture]:
     states = np.random.SeedSequence(seed % 2 ** 64).generate_state(params["captures"])
     out = []
     for k in range(params["captures"]):
         tr = synthesize_inventory(cfg, _tags(params["tags"]), n_rounds=params["rounds"],
-                                  seed=int(states[k]), noise=params["noise"])
+                                  seed=int(states[k]), noise=params["noise"], **synth)
         tile = torch.from_numpy(np.stack([tr.iq.real, tr.iq.imag]).astype(np.float32))
         x2 = tile.to(device).repeat(1, params["tiles"])
         taps = int(cfg.tag_bit_us / 2 * cfg.adc_rate / 1e6 / cfg.miller_m)
