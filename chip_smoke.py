@@ -27,16 +27,17 @@ then:
    equal a CPU run of the port on the same capture;
 3. decodes the bench-size capture (80 rounds x 8 tiles, 9.7 M samples,
    max_events=1536): 640 of 640 EPCs, with launch counts showing that the
-   decode went through both kernels (gate_front's y build); times it with
-   CUDA events.  Every phase that counts launches also counts gate_front's
+   decode went through both front kernels (gate_front's y build) and one
+   gate_pulses launch (one a native gate, in every phase that counts);
+   times it with CUDA events.  Every phase that counts launches also counts gate_front's
    by build (``kernels.front_bodies``): native decodes, MRC, recovery, live
    native windows, stream chunks and native shards take the y build,
    compat mode and the exact gate the full build.  From phase 2 to phase 18
    the kernels keep a copy of their first input at each shape and geometry
    (``kernels.keep_inputs``), and after each phase gate_front's two builds,
-   gate_stack and compat_gate are held bit for bit against their plain
-   versions on every one of them (``hold_kept``); phases 19 and 20 do the
-   same each;
+   gate_stack, compat_gate and gate_pulses are held bit for bit against
+   their plain versions on every one of them (``hold_kept``); phases 19 and
+   20 do the same each;
 4. sweeps gate_front's tile (block_y outputs) and gate_stack's run (words a
    warp streams, at the bench and golden shapes) and prints the fastest,
    then times each kernel and its plain version at the bench shape, beside
@@ -48,8 +49,10 @@ then:
    segment, with its launch shape and a segment sweep; gate_front's y build
    at the bench shape (its tile swept) and the golden shape beside its
    bound, its plain version and ``torch.nn.functional.conv1d`` with a ones
-   kernel (the library call that computes the same y).  Every
-   kernel is timed under both flushes of ``utils/timing.py::cuda_ms``:
+   kernel (the library call that computes the same y); gate_pulses at the
+   bench shape and at the benchmark cell's Ny (46.6 M) beside its byte
+   bound and its plain version, bit-equal to the plain version at each.
+   Every kernel is timed under both flushes of ``utils/timing.py::cuda_ms``:
    written (L2 left full of dirty lines, the earlier yardstick) and read (L2
    left clean); the kernels line gives the written times in ``ms``,
    ``plain_ms`` and ``library_ms`` and the read ones in ``ms_read``,
@@ -443,11 +446,14 @@ def launch_counts():
     return {**kernels.launches, **{f"front_{k}": v for k, v in kernels.front_bodies.items()}}
 
 
-def counts_of(gate_front=0, gate_stack=0, gate_scan=0, probe=0, build="y", compat_gate=0):
+def counts_of(gate_front=0, gate_stack=0, gate_scan=0, probe=0, build="y", compat_gate=0,
+              gate_pulses=None):
     """The ``launch_counts()`` of a run whose gate_front launches are all of
-    one build."""
+    one build.  ``gate_pulses`` (one a native gate) is by default one a
+    gate_stack launch, whose flags each feed one native gate."""
     return {"gate_front": gate_front, "gate_stack": gate_stack, "gate_scan": gate_scan,
             "compat_gate": compat_gate, "probe": probe,
+            "gate_pulses": gate_stack if gate_pulses is None else gate_pulses,
             "front_full": gate_front * (build == "full"), "front_y": gate_front * (build == "y")}
 
 
@@ -547,6 +553,43 @@ def stack_bound(ny, win):
     output (|y|, the dyadic levels, the combine, the threshold)."""
     return bound(4 * (2 * ny) + 4 * ny,
                  ny * (3 + 1 + (win.bit_length() - 1) + (bin(win).count("1") - 1) + 2))
+
+
+def pulses_bound(ny, bsz):
+    """gate_pulses' least time: the int32 flags read once; the two int32
+    block outputs and the two counts written once."""
+    from gen2_rfid_tpu_torch.kernels.gate_pulses import block_step
+
+    return bound(4 * ny + 8 * -(-ny // block_step(bsz)) + 8, 0)
+
+
+def pulses_row(label, flags, cfg, both, fmt, reps=20):
+    """gate_pulses at one shape: bit-equal to its plain version, timed under
+    both flushes beside its bound and its plain version.  Returns the row
+    for the kernels line."""
+    import torch
+
+    from gen2_rfid_tpu_torch.dsp.gate import block_size, gate_pulses_plain, pulse_window
+    from gen2_rfid_tpu_torch.kernels.gate_pulses import gate_pulses, tile_geometry
+
+    nt1 = cfg.n_samples_t1
+    geo = (nt1, cfg.num_pulses_command, block_size(nt1), pulse_window(cfg))
+    n = flags.shape[0]
+    want = gate_pulses_plain(flags, *geo)
+    check(all(torch.equal(g, v) for g, v in zip(gate_pulses(flags, *geo), want)),
+          f"{label}: gate_pulses is not bit-equal to its plain version")
+    halo, tile, wpt, smem = tile_geometry(geo[3], geo[2])
+    t = both(lambda: gate_pulses(flags, *geo), reps)
+    pt = both(lambda: gate_pulses_plain(flags, *geo), 3)
+    b, by = pulses_bound(n, geo[2])
+    log(f"[time] {label} gate_pulses Ny={n} (window {geo[3]}, block {geo[2]}; tile {tile} + "
+        f"halo {halo}, {wpt} words a thread, {smem} B shared): {fmt(t)}, bound {b:.4f} ms "
+        f"({by}), {100 * b / t['read']:.1f}% of the read time; plain {fmt(pt)}; "
+        f"{int(want[2][0])} triggers; bit-equal to plain")
+    return {"n": n, "window": geo[3], "bsz": geo[2], "tile": tile, "halo": halo, "wpt": wpt,
+            "ms": t["write"], "ms_read": t["read"], "bound_ms": b, "bound_by": by,
+            "share_read": b / t["read"], "plain_ms": pt["write"], "plain_ms_read": pt["read"],
+            "triggers": int(want[2][0])}
 
 
 def segment_report(label, y2, geo, both, fmt, flush, plain=False):
@@ -1193,8 +1236,9 @@ def phase_mrc(dev, rounds=80, tiles=8):
     torch.cuda.synchronize()
     got = launch_counts()
     log(f"[mrc4] launches {got}")
-    check(got == counts_of(n_chan),
-          f"mrc4: {got}, expected one gate_front (y build) a channel and nothing else")
+    check(got == counts_of(n_chan, gate_pulses=1),
+          f"mrc4: {got}, expected one gate_front (y build) a channel, one gate_pulses (the "
+          "gate on the combined envelope) and nothing else")
     want = rounds * tiles
     check(int(st.n_epc_correct) == want and int(st.tag_reads[27]) == want
           and unique_tags(st) == 1,
@@ -1496,7 +1540,7 @@ def phase_cli(dev, iq_b, tr_g):
         del chans
         argv = ["decode", *ants, "--mrc", "--max-events", "1536",
                 "--antenna-pos", *[f"{p!r}" for p in pos]]
-        _, text = cli_launches(argv, {"gate_front": 4}, "mrc4")
+        _, text = cli_launches(argv, {"gate_front": 4, "gate_pulses": 1}, "mrc4")
         lines = text.splitlines()
         bearing = [ln for ln in lines if ln.startswith("| Tag 0x1b: bearing ")]
         check("| Correctly decoded EPC : 640" in lines and len(bearing) == 1
@@ -2072,14 +2116,16 @@ def sweep_tables(device: str):
 
 
 def kept_kernel_checks():
-    """gate_front's two builds, gate_stack and compat_gate against their
-    plain versions, bit for bit, on every input a run launched them on (one a
-    shape and geometry, kept by ``kernels.keep_inputs``; compat_gate's amp
-    and avg stacked).  Returns the (kernel, N) checked, gate_front's y build
-    as ``gate_front_y``."""
+    """gate_front's two builds, gate_stack, compat_gate and gate_pulses
+    against their plain versions, bit for bit, on every input a run launched
+    them on (one a shape and geometry, kept by ``kernels.keep_inputs``;
+    compat_gate's amp and avg stacked).  Returns the (kernel, N) checked,
+    gate_front's y build as ``gate_front_y``."""
     import torch
 
     from gen2_rfid_tpu_torch import kernels
+    from gen2_rfid_tpu_torch.dsp.gate import gate_pulses_plain
+    from gen2_rfid_tpu_torch.kernels.gate_pulses import gate_pulses
     from gen2_rfid_tpu_torch.kernels.gate_front import (
         gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
     from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_flags, gate_stack_plain
@@ -2089,6 +2135,9 @@ def kept_kernel_checks():
     for (name, shape, *geo), x in kernels.kept.items():
         if name == "compat_gate":
             got, want = compat_gate(x[0], x[1], *geo), compat_gate_plain(x[0], x[1], *geo)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+        elif name == "gate_pulses":
+            got, want = gate_pulses(x, *geo), gate_pulses_plain(x, *geo)
             same = all(torch.equal(g, w) for g, w in zip(got, want))
         elif name == "gate_front" and geo[0] == "y":
             name = "gate_front_y"
@@ -2101,7 +2150,7 @@ def kept_kernel_checks():
             same = torch.equal(gate_stack_flags(x, *geo), gate_stack_plain(x, *geo[:4]))
         check(same, f"{name} is not bit-equal to its plain version at the kept "
                     f"shape {shape}, geometry {tuple(geo)}")
-        checked.append((name, shape[1]))
+        checked.append((name, shape[-1]))
     return checked
 
 
@@ -2119,7 +2168,8 @@ def hold_kept(label):
         by_kernel.setdefault(k, set()).add(n)
     log(f"[kept kernels {label}] bit-equal to their plain versions on the "
         f"{len(checked)} input shapes and geometries launched: " + "; ".join(
-            f"{k} {'Ny' if k in ('gate_stack', 'compat_gate') else 'N'} {sorted(ns)}"
+            f"{k} {'Ny' if k in ('gate_stack', 'compat_gate', 'gate_pulses') else 'N'} "
+            f"{sorted(ns)}"
             for k, ns in sorted(by_kernel.items())))
     kernels.keep_inputs(True)
     return checked
@@ -2227,10 +2277,11 @@ def phase_sweeps(dev):
         check(n == h["decodes"], f"{label}: {n} decodes on the card, {h['decodes']} on the CPU")
         check(c["launches"] == counts_of(n, n),
               f"{label}: launches {c['launches']} for {n} native single-channel decodes, "
-              "expected one gate_front (y build) and one gate_stack launch a decode")
+              "expected one gate_front (y build), one gate_stack and one gate_pulses launch "
+              "a decode")
     n_dec = sum(c["decodes"] for c in card)
     check(n_dec > 0 and launches["gate_front"] == n_dec and fronts == {"full": 0, "y": n_dec}
-          and sum(bodies.values()) == launches["gate_stack"]
+          and sum(bodies.values()) == launches["gate_stack"] == launches["gate_pulses"]
           and bodies["stream"] > 0 and bodies["segment"] > 0,
           f"sweep launches {launches}, gate_front by build {fronts}, gate_stack by body "
           f"{bodies}, for {n_dec} decodes")
@@ -2240,9 +2291,9 @@ def phase_sweeps(dev):
 
     checked = kept_kernel_checks()
     torch.cuda.synchronize()
-    check({k for k, _ in checked} == {"gate_front_y", "gate_stack"},
+    check({k for k, _ in checked} == {"gate_front_y", "gate_stack", "gate_pulses"},
           f"the sweeps kept inputs of {sorted({k for k, _ in checked})}")
-    for name in ("gate_front_y", "gate_stack"):
+    for name in ("gate_front_y", "gate_stack", "gate_pulses"):
         ns = sorted({n for k, n in checked if k == name})
         log(f"[sweeps kernels] {name} bit-equal to its plain version on the "
             f"{sum(k == name for k, _ in checked)} input shapes and geometries the rows "
@@ -2257,6 +2308,7 @@ def phase_sweeps(dev):
           f"Miller matrix: {miller[-1]}, failing {failed}; the JAX tool's run fails "
           "exactly the four M=2 + interferer cells")
     return {"gate_front": launches["gate_front"], "front_y": fronts["y"],
+            "gate_pulses": launches["gate_pulses"],
             "stream": bodies["stream"], "segment": bodies["segment"]}
 
 
@@ -2288,7 +2340,8 @@ def bench_run(twin, argv):
         kernels.keep_inputs(False)
     got = {"gate_front": kernels.launches["gate_front"], "front_y": kernels.front_bodies["y"],
            "front_full": kernels.front_bodies["full"], "stream": kernels.stack_bodies["stream"],
-           "segment": kernels.stack_bodies["segment"], "gate_scan": kernels.launches["gate_scan"]}
+           "segment": kernels.stack_bodies["segment"], "gate_scan": kernels.launches["gate_scan"],
+           "gate_pulses": kernels.launches["gate_pulses"]}
     log(f"[bench] {twin} {' '.join(argv)}: {seconds:.3f} s wall, launches {got}")
     for line in lines:
         log(f"[bench line] {line}")
@@ -2314,7 +2367,7 @@ def phase_bench(dev, both, fmt):
     from gen2_rfid_tpu_torch.tools.bench_configs import CASES
 
     name = torch.cuda.get_device_name(0)
-    total = {"gate_front": 0, "front_y": 0, "stream": 0, "segment": 0}
+    total = {"gate_front": 0, "front_y": 0, "stream": 0, "segment": 0, "gate_pulses": 0}
     y_rows = {}
     runs = [("bench", [], "iq_decode_throughput")]
     runs += [("bench_configs", ["--configs", case], case) for case in CASES]
@@ -2335,7 +2388,7 @@ def phase_bench(dev, both, fmt):
         runs_n = BENCH_DECODES + 1
         check(got == {"gate_front": runs_n * n_chan, "front_y": runs_n * n_chan, "front_full": 0,
                       body: runs_n * n_chan, ("segment" if body == "stream" else "stream"): 0,
-                      "gate_scan": 0},
+                      "gate_scan": 0, "gate_pulses": runs_n * n_chan},
               f"{label}: {got} for {runs_n} decodes of {n_chan} channel(s)")
         if label == "iq_decode_throughput":
             check(line["samples_per_iter"] == BENCH_N, f"flagship N {line['samples_per_iter']}")
@@ -2345,10 +2398,10 @@ def phase_bench(dev, both, fmt):
         else:
             log(f"[bench roles] {label}: {line['roles']}")
         checked = kept_kernel_checks()
-        check({k for k, _ in checked} == {"gate_front_y", "gate_stack"},
+        check({k for k, _ in checked} == {"gate_front_y", "gate_stack", "gate_pulses"},
               f"{label}: kept inputs {checked}")
-        log(f"[bench kernels] {label}: gate_front_y and gate_stack bit-equal to their plain "
-            f"versions at the shapes it launched them on: {sorted(checked)}")
+        log(f"[bench kernels] {label}: gate_front_y, gate_stack and gate_pulses bit-equal to "
+            f"their plain versions at the shapes it launched them on: {sorted(checked)}")
         if label in ("blf640", "blf160"):
             c = CASES[label].cfg
             geo = (c.decim, front_taps(c), c.win_length, c.dc_length)
@@ -2374,7 +2427,7 @@ def phase_bench(dev, both, fmt):
               f"bench_scaling n_time={n_time}: {line['launches'][key]}, expected {want}")
     runs_n = (BENCH_DECODES + 1) * (1 + SCALING_POSITIONS)
     check(got == {"gate_front": runs_n, "front_y": runs_n, "front_full": 0, "stream": runs_n,
-                  "segment": 0, "gate_scan": 0}, f"bench_scaling: {got}")
+                  "segment": 0, "gate_scan": 0, "gate_pulses": runs_n}, f"bench_scaling: {got}")
     checked = kept_kernel_checks()
     log(f"[bench kernels] scaling: bit-equal at {sorted(checked)}")
     for k in total:
@@ -2886,9 +2939,9 @@ def main() -> int:
             err_stack = max(err_stack, int((got - want).abs().max()))
 
     # From here to phase 18 the kernels keep their inputs, and after each
-    # phase (hold_kept) gate_front's two builds, gate_stack and compat_gate
-    # are held bit for bit against their plain versions on every shape and
-    # geometry the phase launched them on.
+    # phase (hold_kept) gate_front's two builds, gate_stack, compat_gate and
+    # gate_pulses are held bit for bit against their plain versions on every
+    # shape and geometry the phase launched them on.
     kernels.keep_inputs(True)
 
     # ---- phase 2: the golden trace on CUDA, against a CPU run ----
@@ -2998,6 +3051,11 @@ def main() -> int:
                                 full_y=y2_bench, sweep=flush),
               "golden": y_report("golden", x2_g.to(dev), (decim, taps, win, dcw), both, fmt,
                                  full_y=y2_gold)}
+    # gate_pulses at the bench shape and at the benchmark cell's Ny, 46.6 M
+    # (the bench flags 24 times over: 46,580,640 of the cell's 46,580,659).
+    flags_b = gate_stack_flags(y2_bench, *stack_geo)
+    pulse_rows = {"bench": pulses_row("bench", flags_b, cfg_b, both, fmt),
+                  "cell": pulses_row("cell Ny", flags_b.repeat(24), cfg_b, both, fmt)}
     hold_kept("phases 2-4")
 
     # ---- phase 5: where the bench decode's time goes ----
@@ -3128,10 +3186,12 @@ def main() -> int:
         log(f"[{label}] launches {got}")
         check(got["gate_front"] and got["gate_stack"] and not got["gate_scan"],
               f"{label}: gate_front and gate_stack must run, gate_scan not")
+        check(got["gate_pulses"] == got["gate_stack"],
+              f"{label}: one gate_pulses launch a native gate")
         check(got["front_y"] == got["gate_front"] and not got["front_full"],
               f"{label}: gate_front must run its y build only")
-        check(not once or (got["gate_front"], got["gate_stack"]) == (1, 1),
-              f"{label}: gate_front and gate_stack must launch once each")
+        check(not once or (got["gate_front"], got["gate_stack"], got["gate_pulses"]) == (1, 1, 1),
+              f"{label}: gate_front, gate_stack and gate_pulses must launch once each")
         return run_o, got
 
     for label, c, want in (
@@ -3326,6 +3386,25 @@ def main() -> int:
          "launches_stream": compat["stream"],
          "launches_sharded": compat["sharded"], "launches_live": compat["live"],
          "compat_decode_ms": compat["decode_ms"], "compat_decode_profile": compat["profile"]},
+        # gate_pulses: its launches are the native bench decode's; its rows
+        # at bench and at the benchmark cell's Ny; bit-equal to its plain
+        # version there and at every kept input (hold_kept).
+        {"name": "gate_pulses", "route": "cuda",
+         "source": "gen2_rfid_tpu_torch/csrc/gate_pulses.cu",
+         "replaces": "gen2_rfid_tpu/dsp/gate.py:108",
+         "launches": main_launches["gate_pulses"], "max_abs_err": 0,
+         "ms": pulse_rows["bench"]["ms"], "plain_ms": pulse_rows["bench"]["plain_ms"],
+         "bound_ms": pulse_rows["bench"]["bound_ms"],
+         "bound_by": pulse_rows["bench"]["bound_by"], "library_ms": None,
+         "ms_read": pulse_rows["bench"]["ms_read"],
+         "plain_ms_read": pulse_rows["bench"]["plain_ms_read"], "library_ms_read": None,
+         "shapes": pulse_rows, "launches_cli": cli_launches_b["gate_pulses"],
+         "launches_mrc4": mrc_launches["gate_pulses"],
+         "launches_exact": exact_launches["gate_pulses"],
+         "launches_compat": compat_launches["gate_pulses"],
+         "launches_sharded": sharded_launches["gate_pulses"],
+         "launches_sweeps": sweep_launches["gate_pulses"],
+         "launches_bench": bench_launches["gate_pulses"]},
         {"name": "probe", "route": "cuda",
          "source": "gen2_rfid_tpu_torch/csrc/probe.cu",
          "replaces": "tools/tpu_gate_sums_experiment.py:116",

@@ -7,7 +7,9 @@ re-design of the reference gate's per-sample FSM (``gate_impl.cc:85-200``).
   quiet_after) packed by the gate-stack kernel (kernels/gate_stack.py), or,
   for a given amplitude such as the channel-summed envelope of a diversity
   decode, by ``native_flags_from_amp``; from them it counts the PIE pulses
-  since the last reset and solves the trigger.
+  since the last reset, solves the trigger and takes each block's first:
+  the gate-pulses kernel (kernels/gate_pulses.py) on CUDA, its plain
+  version ``gate_pulses_plain`` on the CPU.
 * Compat mode keeps the reference's tie-preserving edge state (the last
   decisive sample's sign), edge runs and the two-pass reset fixed point,
   from |y| and its windowed average: three device-wide scans in the
@@ -29,6 +31,7 @@ import torch
 
 from ..config import ReaderConfig
 from ..kernels.compat_gate import _last_le, compat_gate_for_cfg, gate_signal_state  # noqa: F401
+from ..kernels.gate_pulses import gate_pulses
 from ..kernels.gate_scan import gate_scan_for_cfg
 from ..kernels.gate_stack import (
     MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg, native_flags_from_amp)
@@ -114,7 +117,20 @@ def _compat_triggers(amp: torch.Tensor, avg: torch.Tensor, cfg: ReaderConfig):
     return compat_gate_for_cfg(amp, avg, cfg)
 
 
-def _native_triggers(flags: torch.Tensor, cfg: ReaderConfig):
+def pulse_window(cfg: ReaderConfig) -> int:
+    """The doubling scan's reach: the least power of two >= the command
+    span (its steps k = 1, 2, ... < command_span(cfg))."""
+    return 1 << (command_span(cfg) - 1).bit_length()
+
+
+def block_size(nt1: int) -> int:
+    """The block-first compaction's block (gate.py:282-305): the largest
+    power of two <= min(nt1 + 1, 512), whose T1-quiet condition leaves at
+    most one trigger a block; below 8 there are no blocks."""
+    return 1 << max(min(nt1 + 1, 512).bit_length() - 1, 0)
+
+
+def _native_triggers(flags: torch.Tensor, nt1: int, npc: int, span: int):
     """(trig, pulses_at) of the native gate from the packed flags."""
     n = flags.shape[0]
     arange = torch.arange(n, dtype=torch.int32, device=flags.device)
@@ -122,14 +138,48 @@ def _native_triggers(flags: torch.Tensor, cfg: ReaderConfig):
     qualify = (flags & QUALIFY) != 0
     marker = (flags & MARKER) != 0
     quiet_after = (flags & QUIET) != 0
-    nt1 = cfg.n_samples_t1
     # Pulses reset at every disqualified (short) rise and at every CW marker,
     # which bounds the count's lookback to one command span.
     reset = (rise & ~qualify) | marker
-    pulses_at = _rises_since_reset(rise, reset, command_span(cfg))
-    trig = (rise & (pulses_at > cfg.num_pulses_command) & quiet_after
+    pulses_at = _rises_since_reset(rise, reset, span)
+    trig = (rise & (pulses_at > npc) & quiet_after
             & (arange + nt1 + 1 < n))
     return trig, pulses_at
+
+
+def _block_first(trig: torch.Tensor, nt1: int, bsz: int) -> torch.Tensor:
+    """Each block's first trigger sample, t + nt1 + 1, or n where it has
+    none (gate.py:282-305); one sample a block below 8."""
+    n = trig.shape[0]
+    arange = torch.arange(n, dtype=torch.int32, device=trig.device)
+    trig_sample = torch.where(trig, arange + nt1 + 1, n)
+    if bsz < 8:
+        return trig_sample
+    nb = -(-n // bsz)
+    s2 = torch.cat([trig_sample, trig_sample.new_full((nb * bsz - n,), n)])
+    return s2.reshape(nb, bsz).amin(dim=1)
+
+
+def _candidates(trig: torch.Tensor, pulses_at: torch.Tensor, nt1: int, bsz: int):
+    """(cand, pulses, counts) from the per-sample triggers and pulse counts:
+    each block's first trigger sample and the count at its rise (0 where
+    none), and (triggers, count at max(n - nt1 - 2, 0)), the count an
+    invalid slot, whose event is clamped to n - 1, keeps."""
+    n = trig.shape[0]
+    i32 = torch.int32
+    cand = _block_first(trig, nt1, bsz)
+    rise = torch.clamp(cand - (nt1 + 1), min=0).to(torch.int64)
+    pulses = torch.where(cand < n, pulses_at[rise].to(i32), 0)
+    counts = torch.stack([trig.sum(dtype=i32), pulses_at[max(n - nt1 - 2, 0)].to(i32)])
+    return cand, pulses, counts
+
+
+def gate_pulses_plain(flags: torch.Tensor, nt1: int, npc: int, bsz: int, window: int):
+    """Plain version of the gate-pulses kernel (kernels/gate_pulses.py):
+    the doubling scan over ``window``, the trigger test and the block-first
+    pad over whole arrays; the same (cand, pulses, counts)."""
+    trig, pulses_at = _native_triggers(flags, nt1, npc, window)
+    return _candidates(trig, pulses_at, nt1, bsz)
 
 
 @profiling.spanned("gen2.gate")
@@ -147,9 +197,11 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     dev = y.device
     i32 = torch.int32
     nt1 = cfg.n_samples_t1
+    bsz = block_size(nt1)
     if cfg.mode == "compat":
         _check_amp_avg(amp, avg, "compat gate_detect")
         trig, pulses_at = _compat_triggers(amp, avg, cfg)
+        cand, cand_pulses, counts = _candidates(trig, pulses_at, nt1, bsz)
     else:
         if flags is None and amp is not None:
             if avg is None:
@@ -161,39 +213,32 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
             if avg is not None:
                 raise ValueError("native gate_detect takes avg only with the amp it averages")
             flags = gate_stack_for_cfg(torch.stack([y.real, y.imag]).contiguous(), cfg)
-        trig, pulses_at = _native_triggers(flags, cfg)
-    arange = torch.arange(n, dtype=i32, device=dev)
-    trig_sample = torch.where(trig, arange + nt1 + 1, n)
+        geo = (nt1, cfg.num_pulses_command, bsz, pulse_window(cfg))
+        pulses_of = gate_pulses if flags.device.type == "cuda" else gate_pulses_plain
+        cand, cand_pulses, counts = pulses_of(flags, *geo)
 
     # Block-first compaction to max_events (gate.py:282-305): the T1-quiet
     # condition leaves at most one trigger per block of <= nt1+1 samples.
     cap = cfg.max_events
-    bsz = 1 << max(min(nt1 + 1, 512).bit_length() - 1, 0)
-    if bsz >= 8:
-        nb = -(-n // bsz)
-        s2 = torch.cat([trig_sample, trig_sample.new_full((nb * bsz - n,), n)])
-        cand = s2.reshape(nb, bsz).amin(dim=1)
-    else:
-        cand = trig_sample
     has = cand < n
-    pos = torch.cumsum(has.to(i32), 0, dtype=i32) - 1
-    slot = torch.where(has, torch.clamp(pos, max=cap), cap)
+    pos = torch.cumsum(has, 0, dtype=torch.int64)
     # Slot ``cap`` is the drop slot: triggers past capacity land there.
-    ev = torch.full((cap + 1,), n, dtype=i32, device=dev)
-    ev = ev.scatter(0, slot.to(torch.int64), cand)[:cap]
+    slot = torch.where(has, torch.clamp(pos - 1, max=cap), cap)
+    ev = torch.full((cap + 1,), n, dtype=i32, device=dev).scatter_(0, slot, cand)[:cap]
+    # The trigger sits nt1+1 after the command's final rise, whose pulse
+    # count each candidate carries; an invalid slot keeps the count at the
+    # rise nt1+1 before n-1 (counts[1]).
+    n_pulses = counts[1:].repeat(cap + 1).scatter_(0, slot, cand_pulses)[:cap]
     valid = ev < n
     ev_c = torch.clamp(ev, max=n - 1)
     dc, nv = _event_window_stats(y, ev_c, cfg.dc_length)
-    # The trigger sits nt1+1 after the command's final rise, where pulses_at
-    # still holds that command's pulse count.
-    rise_of_ev = torch.clamp(ev_c - (nt1 + 1), min=0)
     return GateEvents(
         index=ev,          # invalid slots keep index n (sorts last)
         dc=dc,
         valid=valid,
-        n_events=trig.sum(dtype=i32),
+        n_events=counts[0],
         noise_var=nv,
-        n_pulses=pulses_at[rise_of_ev.to(torch.int64)].to(i32),
+        n_pulses=n_pulses,
     )
 
 

@@ -10,14 +10,15 @@ the stream kernel at ReaderConfig's widths, the segment kernel at any other.
 path that reads only y) and "full" (y, |y| and both windowed sums: compat
 mode and the exact gate).
 
-``keep_inputs(True)`` has gate_front, gate_stack and compat_gate keep, in
+``keep_inputs(True)`` has gate_front, gate_stack, compat_gate and gate_pulses keep, in
 ``kept``, a copy of the first input each launches its kernel on for every
 distinct shape and geometry (gate_front's geometry starts with its build;
 compat_gate keeps amp and avg stacked), so that a caller can hold the
 kernels against their plain versions at the shapes a run gave them.
 """
 
-launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0}
+launches = {"gate_front": 0, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0,
+            "gate_pulses": 0}
 stack_bodies = {"stream": 0, "segment": 0}
 front_bodies = {"full": 0, "y": 0}
 kept = {}

@@ -20,6 +20,8 @@ from gen2_rfid_tpu_torch.kernels.compat_gate import (
     config_tile)
 from gen2_rfid_tpu_torch.kernels.gate_front import (
     BLOCK_Y, BLOCK_Y_Y, gate_front, gate_front_plain, gate_front_y, gate_front_y_plain)
+from gen2_rfid_tpu_torch.kernels.gate_pulses import (
+    gate_pulses, kernel_geometry, pulse_cases, random_flags, tile_geometry)
 from gen2_rfid_tpu_torch.kernels.gate_scan import (
     dense_edges, gate_scan, gate_scan_for_cfg, gate_scan_plain, pulse_train, random_runs)
 from gen2_rfid_tpu_torch.kernels.gate_stack import (
@@ -556,10 +558,152 @@ def test_compat_gate_kernel_on_golden(cuda):
     st, dec = decode_capture_planar(x2.to(cuda), c)
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 1, "gate_stack": 0, "gate_scan": 0, "compat_gate": 1, "probe": 0}
+        "gate_front": 1, "gate_stack": 0, "gate_scan": 0, "compat_gate": 1, "probe": 0,
+        "gate_pulses": 0}
     st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
     _same_int_fields(dec, dec_c)
     _same_int_fields(st, st_c)
+
+
+# ---- the native gate's pulse count -----------------------------------------------
+
+# The native geometries: ReaderConfig(), the Miller-4 benchmark file's reader,
+# Miller-4 at decim 1, FM0 at 8 and 16 Msps, and a block under 8 samples.
+PULSE_GEOMETRIES = {
+    "reader": {},
+    "miller4_file": dict(miller_m=4, blf_hz=40e3, dr=1, pw_us=12, delim_us=12, trcal_us=133,
+                         rtcal_us=72, decim=1, t1_us=128, t2_us=62),
+    "miller4": dict(miller_m=4, decim=1),
+    "fm0_8msps": dict(adc_rate=8e6, decim=1),
+    "fm0_16msps": dict(adc_rate=16e6, decim=1),
+    "block_under_8": dict(t1_us=10),
+}
+
+
+def _pulse_geometry(name):
+    from gen2_rfid_tpu_torch.dsp.gate import block_size, pulse_window
+
+    c = ReaderConfig(**PULSE_GEOMETRIES[name])
+    nt1 = c.n_samples_t1
+    return nt1, c.num_pulses_command, block_size(nt1), pulse_window(c)
+
+
+def _same_pulses(flags, geo, label):
+    from gen2_rfid_tpu_torch.dsp.gate import gate_pulses_plain
+
+    before = kernels.launches["gate_pulses"]
+    got = gate_pulses(flags, *geo)
+    want = gate_pulses_plain(flags, *geo)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_pulses"] == before + 1
+    for g, w, what in zip(got, want, ("cand", "pulses", "counts")):
+        assert torch.equal(g, w), (label, what)
+    return got
+
+
+@pytest.mark.parametrize("name", list(PULSE_GEOMETRIES))
+def test_gate_pulses_kernel_on_the_cases(cuda, name):
+    """Bit-equal to the plain version on every input that stresses the
+    tiles (``pulse_cases``: resets on tile and halo edges, no reset for
+    more than the window, rises only in the halo, n below the window, n a
+    multiple of neither block nor tile, dense rises, a count at the invalid
+    slots' sample) and on random flags."""
+    geo = _pulse_geometry(name)
+    cases = pulse_cases(geo[0], geo[3], geo[2], seed=11)
+    for label, flags in cases + [("random", random_flags(300_007, 1))]:
+        _same_pulses(flags.to(cuda), geo, label)
+
+
+def test_gate_pulses_geometry_is_the_models(cuda):
+    """The built kernel tiles as the Python model (``tile_geometry``, which
+    ``pulse_cases`` places its edges by) at every window and block, and
+    refuses what it refuses."""
+    for window in (128, 1024, 2048, 4096, 8192, 16384, 32768, 65536):
+        for bsz in (4, 8, 64, 256, 512):
+            assert kernel_geometry(window, bsz) == tile_geometry(window, bsz), (window, bsz)
+    for bad in ((1000, 64), (1024, 48), (1024, 1024), (1 << 18, 64)):
+        with pytest.raises(ValueError):
+            kernel_geometry(*bad)
+        with pytest.raises(ValueError):
+            tile_geometry(*bad)
+
+
+def test_gate_pulses_kernel_at_the_cell_length(cuda):
+    """The benchmark cell's Ny, 46.6 M samples, drawn on the card at the
+    rates of a capture's flags and denser: bit-equal to the plain version."""
+    n = 232_903_296 // 5
+    geo = _pulse_geometry("reader")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for rise in (0.02, 0.3):
+        r = torch.rand(n, device=cuda, generator=g) < rise
+        q = r & (torch.rand(n, device=cuda, generator=g) >= 0.01)
+        m = torch.rand(n, device=cuda, generator=g) < 0.0005
+        z = torch.rand(n, device=cuda, generator=g) < 0.2
+        flags = (r.int() + 2 * q.int() + 4 * m.int() + 8 * z.int()).to(torch.int32)
+        _, _, counts = _same_pulses(flags, geo, f"cell length, rise {rise}")
+        assert int(counts[0]) > 0
+
+
+def _gate_inputs(name):
+    """(cfg, planar capture) of a decode whose gate the card must match."""
+    from gen2_rfid_tpu_torch.runtime.inventory import to_planar
+    from gen2_rfid_tpu_torch.sim.tag import Tag
+    from gen2_rfid_tpu_torch.sim.trace import golden_trace, synthesize_inventory
+
+    if name == "golden":
+        return CFG, to_planar(golden_trace(CFG).iq)
+    if name == "miller":
+        c = ReaderConfig(miller_m=4, adc_rate=4e6, decim=2, max_events=64, track_channel=True)
+        tag = Tag.with_id(27, seed=7, blf_offset=0.02)
+    else:
+        c = ReaderConfig(adc_rate=8e6, decim=1, max_events=64)
+        tag = Tag.with_id(27, seed=7)
+    return c, to_planar(synthesize_inventory(c, [tag], n_rounds=3, seed=1).iq)
+
+
+@pytest.mark.parametrize("name", ["golden", "miller", "fm0_8msps"])
+def test_gate_events_and_stats_on_card(cuda, name):
+    """The native gate on the card (one gate_pulses launch) gives the CPU's
+    GateEvents: every integer field equal, DC and noise within summation
+    order; the decode's InventoryStats equal the CPU's."""
+    from gen2_rfid_tpu_torch.dsp.gate import gate_detect
+    from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_y_for_cfg
+    from gen2_rfid_tpu_torch.kernels.gate_stack import gate_stack_for_cfg
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar
+    from torch_compare import assert_same_events
+
+    c, x2 = _gate_inputs(name)
+    events = []
+    for dev in (cuda, torch.device("cpu")):
+        y2 = gate_front_y_for_cfg(x2.to(dev), c)
+        before = kernels.launches["gate_pulses"]
+        ev = gate_detect(torch.complex(y2[0], y2[1]), c, gate_stack_for_cfg(y2, c))
+        assert kernels.launches["gate_pulses"] == before + (dev.type == "cuda")
+        events.append(type(ev)(*(t.cpu() for t in ev)))
+    assert int(events[1].n_events) > 0
+    assert_same_events(*events)
+    before = dict(kernels.launches)
+    st, _ = decode_capture_planar(x2.to(cuda), c)
+    torch.cuda.synchronize()
+    assert kernels.launches["gate_pulses"] == before["gate_pulses"] + 1
+    st_c, _ = decode_capture_planar(x2, c, device="cpu")
+    _same_int_fields(st, st_c)
+
+
+def test_gate_pulses_not_in_compat_or_the_exact_gate(cuda):
+    """Compat mode and the exact gate run no gate_pulses; the native decode
+    of the same capture one."""
+    from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar
+
+    c, x2 = _gate_inputs("golden")
+    x2 = x2.to(cuda)
+    for cfg, exact, want in ((c, False, 1), (ReaderConfig(mode="compat"), False, 0),
+                             (c, True, 0), (ReaderConfig(mode="compat"), True, 0)):
+        before = kernels.launches["gate_pulses"]
+        st, _ = decode_capture_planar(x2, cfg, exact_gate=exact)
+        torch.cuda.synchronize()
+        assert kernels.launches["gate_pulses"] == before + want, (cfg.mode, exact)
+        assert int(st.n_epc_correct) == 70
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (1,), (3, 7), (1 << 20,)])
@@ -643,6 +787,7 @@ def test_miller_decode_on_card(cuda):
     assert kernels.launches["gate_front"] == before["gate_front"] + 1
     assert kernels.launches["gate_stack"] == before["gate_stack"] + 1
     assert kernels.launches["gate_scan"] == before["gate_scan"]
+    assert kernels.launches["gate_pulses"] == before["gate_pulses"] + 1
     assert int(st.n_epc_correct) == 3
     st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
     _same_int_fields(dec, dec_c)
@@ -665,6 +810,7 @@ def test_decode_at_high_rates_on_card(cuda, adc):
     torch.cuda.synchronize()
     assert kernels.launches["gate_front"] == before["gate_front"] + 1
     assert kernels.launches["gate_stack"] == before["gate_stack"] + 1
+    assert kernels.launches["gate_pulses"] == before["gate_pulses"] + 1
     assert int(st.n_epc_correct) == 3 and int(st.tag_reads[27]) == 3
     st_c, dec_c = decode_capture_planar(x2, c, device="cpu")
     _same_int_fields(dec, dec_c)
@@ -700,7 +846,7 @@ def test_modes_at_native_geometries_on_card(cuda, name, mode, exact):
     torch.cuda.synchronize()
     got = {k: kernels.launches[k] - before[0][k] for k in kernels.launches}
     assert got == {"gate_front": 1, "gate_stack": 0, "gate_scan": int(exact),
-                   "compat_gate": int(not exact), "probe": 0}
+                   "compat_gate": int(not exact), "probe": 0, "gate_pulses": 0}
     assert kernels.front_bodies["full"] == before[1]["full"] + 1
     assert int(st.n_epc_correct) == int(st.tag_reads[27]) == 3
     st_c, dec_c = decode_capture_planar(x2, c, exact_gate=exact, device="cpu")
@@ -724,7 +870,7 @@ def test_channelize_on_card(cuda):
 
 def test_stream_on_card(cuda):
     """The golden trace in 200,000-sample chunks: the batch decode's stats,
-    one gate_front and one gate_stack launch a chunk."""
+    one gate_front, one gate_stack and one gate_pulses launch a chunk."""
     from gen2_rfid_tpu_torch.runtime.inventory import decode_capture
     from gen2_rfid_tpu_torch.runtime.stream import StreamDecoder
     from gen2_rfid_tpu_torch.sim.trace import golden_trace
@@ -734,7 +880,7 @@ def test_stream_on_card(cuda):
     sd = StreamDecoder(CFG, chunk_adc=200_000)
     st, total = sd.decode(iter(np.array_split(tr.iq, 5)))
     torch.cuda.synchronize()
-    for k in ("gate_front", "gate_stack"):
+    for k in ("gate_front", "gate_stack", "gate_pulses"):
         assert kernels.launches[k] == before[k] + sd._chunk_no
     _same_int_fields(st, decode_capture(tr.iq, CFG, device="cpu")[0])
     assert int(st.n_epc_correct) == 70
@@ -754,7 +900,8 @@ def _two_channel_scene():
 
 
 def test_mrc_decode_on_card(cuda):
-    """One gate_front launch a channel and no other kernel; every stats
+    """One gate_front launch a channel, one gate_pulses launch (the gate on
+    the channels' combined envelope) and no other kernel; every stats
     field and the event table equal to the CPU decode, the decode products
     on valid events whose windows fit (tests/torch_compare.py), h_chan
     within 1e-4 of its largest magnitude."""
@@ -765,7 +912,8 @@ def test_mrc_decode_on_card(cuda):
     st, dec, h = decode_capture_mrc_full(iqs, cfg)
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 2, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0}
+        "gate_front": 2, "gate_stack": 0, "gate_scan": 0, "compat_gate": 0, "probe": 0,
+        "gate_pulses": 1}
     assert int(st.n_epc_correct) == 4
     st_c, dec_c, h_c = decode_capture_mrc_full(iqs, cfg, device="cpu")
     _same_int_fields(st, st_c)
@@ -844,7 +992,7 @@ def test_sic_refuses_tf32_and_recovery_turns_it_off(cuda):
 
 def test_cli_decode_on_card(cuda, tmp_path, capsys):
     """``decode`` without --device decodes on the card: the golden tuple
-    through one launch each of gate_front and gate_stack."""
+    through one launch each of gate_front, gate_stack and gate_pulses."""
     from gen2_rfid_tpu_torch.apps.reader import main
 
     path = str(tmp_path / "golden.bin")
@@ -853,7 +1001,8 @@ def test_cli_decode_on_card(cuda, tmp_path, capsys):
     assert main(["decode", path]) == 0
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": 1, "gate_stack": 1, "gate_scan": 0, "compat_gate": 0, "probe": 0}
+        "gate_front": 1, "gate_stack": 1, "gate_scan": 0, "compat_gate": 0, "probe": 0,
+        "gate_pulses": 1}
     lines = capsys.readouterr().out.splitlines()
     for want in ("| Number of queries/queryreps sent : 71", "| Current Inventory round : 72",
                  "| Correctly decoded EPC : 70", "| Tag ID : 1b  Num of reads : 70"):
@@ -889,7 +1038,7 @@ def test_cli_wideband_turns_tf32_off(cuda, tmp_path, capsys):
 def test_live_inventory_on_card(cuda):
     """The EPC-window SIC pair's live inventory on the card: every integer
     field of LiveStats equal to the CPU run's ("6 3"), through exactly one
-    launch of gate_front and of gate_stack a window decode."""
+    launch of gate_front, of gate_stack and of gate_pulses a window decode."""
     from gen2_rfid_tpu_torch.tools.live_scenes import DecodeLog, build_scene, integer_fields
 
     reader, channel, n_rounds = build_scene("sic_pair")
@@ -900,7 +1049,8 @@ def test_live_inventory_on_card(cuda):
     torch.cuda.synchronize()
     n_dec = len(decodes.calls)
     assert {k: kernels.launches[k] - before[k] for k in before} == {
-        "gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "compat_gate": 0, "probe": 0}
+        "gate_front": n_dec, "gate_stack": n_dec, "gate_scan": 0, "compat_gate": 0, "probe": 0,
+        "gate_pulses": n_dec}
     reader_c, channel_c, _ = build_scene("sic_pair", device="cpu")
     assert integer_fields(st) == integer_fields(reader_c.run_inventory(channel_c, n_rounds))
     assert (st.n_epc_correct, st.n_epc_sic_second) == (6, 3)
@@ -941,7 +1091,8 @@ def test_sharded_decode_on_card(cuda, mode):
     torch.cuda.synchronize()
     assert {k: kernels.launches[k] - before[k] for k in before} == {
         "gate_front": 4, "gate_stack": 4 if mode == "native" else 0, "gate_scan": 0,
-        "compat_gate": 4 if mode == "compat" else 0, "probe": 0}
+        "compat_gate": 4 if mode == "compat" else 0, "probe": 0,
+        "gate_pulses": 4 if mode == "native" else 0}
     st_c, dec_c = decode_capture_sharded(iq, cfg, make_mesh(4, devices=["cpu"] * 4))
     for f in dec._fields:
         a = getattr(dec, f).cpu()

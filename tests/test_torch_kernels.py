@@ -29,6 +29,7 @@ from gen2_rfid_tpu.kernels.gate_stack import (
 from gen2_rfid_tpu.sim.trace import golden_trace as ref_golden_trace
 from gen2_rfid_tpu_torch import kernels
 from gen2_rfid_tpu_torch.config import ReaderConfig
+from gen2_rfid_tpu_torch.dsp.gate import gate_detect
 from gen2_rfid_tpu_torch.kernels import _build
 from gen2_rfid_tpu_torch.kernels.compat_gate import compat_gate_for_cfg
 from gen2_rfid_tpu_torch.kernels.gate_front import (
@@ -36,6 +37,7 @@ from gen2_rfid_tpu_torch.kernels.gate_front import (
     gate_front_for_cfg,
     gate_front_plain,
 )
+from gen2_rfid_tpu_torch.kernels.gate_pulses import gate_pulses
 from gen2_rfid_tpu_torch.kernels.gate_scan import gate_scan_for_cfg
 from gen2_rfid_tpu_torch.kernels.gate_stack import (
     gate_stack_flags,
@@ -184,8 +186,9 @@ def test_cpu_tensors_count_no_launches(golden_y2):
     gate_scan_for_cfg(amp, amp, CFG)
     compat_gate_for_cfg(amp, amp, CFG)
     probe(torch.zeros((8, 128)))
+    gate_detect(torch.complex(golden_y2[0, :5000], golden_y2[1, :5000]), CFG)
     assert kernels.launches == {"gate_front": 0, "gate_stack": 0, "gate_scan": 0,
-                                "compat_gate": 0, "probe": 0}
+                                "compat_gate": 0, "probe": 0, "gate_pulses": 0}
 
 
 def test_keeping_inputs_on_the_cpu_keeps_and_counts_nothing(golden_y2):
@@ -228,6 +231,13 @@ def test_wrappers_reject_other_devices_and_shapes():
         gate_scan_for_cfg(torch.zeros(100), torch.zeros(99), CFG)
     with pytest.raises(ValueError):
         probe(meta)
+    flags = torch.zeros(100, dtype=torch.int32)
+    with pytest.raises(ValueError, match="gate_pulses_plain"):
+        gate_pulses(flags, 96, 5, 64, 1024)
+    with pytest.raises(ValueError):
+        gate_pulses(meta[0].to(torch.int32), 96, 5, 64, 1024)
+    with pytest.raises(ValueError):
+        gate_pulses(flags.reshape(10, 10), 96, 5, 64, 1024)
 
 
 def test_build_flags_keep_ieee_rounding():
