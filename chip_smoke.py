@@ -479,7 +479,7 @@ def y_report(label, x2, geo, both, fmt, full_y=None, reps=20, plain=True, sweep=
     import torch
 
     from gen2_rfid_tpu_torch.kernels.gate_front import (
-        SMEM_LIMIT, _lib, gate_front, gate_front_y, gate_front_y_plain, y_block_y)
+        LIB, SMEM_LIMIT, gate_front, gate_front_y, gate_front_y_plain, y_block_y)
     from gen2_rfid_tpu_torch.utils.timing import cuda_ms
 
     decim, taps = geo[:2]
@@ -515,7 +515,7 @@ def y_report(label, x2, geo, both, fmt, full_y=None, reps=20, plain=True, sweep=
         row.update(plain_ms=pt["write"], plain_ms_read=pt["read"])
         text = f", plain {fmt(pt)}"
     if sweep is not None:
-        tiles = [b for b in Y_TILES if _lib().gate_front_y_smem_bytes(decim, taps, b) <= SMEM_LIMIT]
+        tiles = [b for b in Y_TILES if LIB.gate_front_y_smem_bytes(decim, taps, b) <= SMEM_LIMIT]
         for tile in tiles:
             check(torch.equal(gate_front_y(x2, decim, taps, block_y=tile), want),
                   f"{label}: gate_front_y at block_y={tile} is not bit-equal to its plain version")
@@ -2549,7 +2549,7 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
     from gen2_rfid_tpu_torch import kernels
     from gen2_rfid_tpu_torch.config import ReaderConfig
     from gen2_rfid_tpu_torch.kernels.compat_gate import (
-        CONFIGS, TILE, _lib, compat_cases, compat_gate, compat_gate_plain,
+        CONFIGS, LIB, TILE, compat_cases, compat_gate, compat_gate_plain,
         compat_gate_tiles_plain, config_tile)
     from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
     from gen2_rfid_tpu_torch.runtime.inventory import decode_capture_planar, to_planar
@@ -2628,8 +2628,7 @@ def phase_compat(dev, both, fmt, x2_g, x2_b, tr_g, iq_b, rng):
                 if name == "compat_gate" and shape[1] <= TILE), key=lambda x: x.shape[1])
 
     # The kernel against its plain version on the card, and its tile model.
-    lib = _lib()
-    check([lib.compat_gate_tile(i) for i in range(lib.compat_gate_configs())]
+    check([LIB.compat_gate_tile(i) for i in range(LIB.compat_gate_configs())]
           == [config_tile(i) for i in range(len(CONFIGS))],
           "compat_gate's configurations differ from the wrapper's")
     win = torch.tensor(float(cfg_gc.win_length), device=dev)

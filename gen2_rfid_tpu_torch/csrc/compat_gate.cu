@@ -89,11 +89,6 @@
 // length and T1 window (kernels/compat_gate.py::choose_config), from the
 // sweep chip_smoke.py records.
 //
-// -DCOMPAT_GATE_TRACE builds a variant for measurement only
-// (gen2_rfid_tpu_torch/tools/compat_gate_trace.py): thread 0 of each tile
-// records clock64 at each TRACE point, and the global timer and its SM at
-// the first.
-//
 // --fmad=false and __fmul_rn keep the threshold the plain version's float32
 // product.
 
@@ -122,25 +117,6 @@ constexpr int kStatusOff = 4;
 constexpr int kMaxSpins = 1 << 24;
 // Predecessors a look-back round reads, kWindow / T a thread.
 constexpr int kWindow = 256;
-
-#ifdef COMPAT_GATE_TRACE
-constexpr int kTraceRows = 16384;
-__device__ unsigned long long g_trace[kTraceRows][10];
-#define TRACE(k)                                                                     \
-  if (tid == 0 && tile < kTraceRows) {                                               \
-    g_trace[tile][k] = clock64();                                                    \
-    if ((k) == 0) {                                                                  \
-      unsigned long long g_;                                                         \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));                         \
-      g_trace[tile][8] = g_;                                                         \
-      unsigned smid_;                                                                \
-      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid_));                             \
-      g_trace[tile][9] = smid_;                                                      \
-    }                                                                                \
-  }
-#else
-#define TRACE(k)
-#endif
 
 struct Desc {
   int v[kDescWords];
@@ -675,7 +651,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
   const int tile = kOne ? 0 : s_tile;
   const unsigned long long epoch = kOne ? 0 : s_epoch;
   const int tile_base = tile * kTile;
-  TRACE(0);
 
   // The halo: the first below sample in [tile end, tile end + nt1].  A
   // thread's first halo sample is loaded before its words.
@@ -703,7 +678,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
     const int i = tile_end + j;
     if (__ldg(amp + i) < __fmul_rn(__ldg(avg + i), frac)) hb = i;
   }
-  TRACE(1);
   hb = __reduce_min_sync(kFull, hb);
   if (lane == 0 && hb != kNone) atomicMin(&s_halo, hb);
 
@@ -743,7 +717,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
     if (lane == 31) s_edges[warp] = x;
   }
   __syncthreads();
-  TRACE(2);
   if (!kOne && s_halo < after) after = s_halo;
 #pragma unroll
   for (int w2 = 0; w2 < kWarps; ++w2)
@@ -769,7 +742,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
     cand[k] = cm;
     if (below[k]) after = base + __ffs(below[k]) - 1;
   }
-  TRACE(3);
 
   Carry c;                              // into the thread's first word
   if constexpr (kOne) {
@@ -777,7 +749,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
     // come from two scans: the state, the rises and the last edge (begun
     // above), then the pulses part under them.
     const Edges e = cross_warp<T>(e_ex, e_id, edges_op, s_edges);
-    TRACE(4);
     c = {e.so[0] ? 1 : -1, e.nr[0], e.le[0], 0, 0};   // from the start: state -1
     // The pulses part, each word's rises under the carry now known.
     Pulses pu = {0, 0, 0, 0};
@@ -814,11 +785,9 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
     if (lane == 31) s_pulses[warp] = px;
     __syncthreads();
     pu = cross_warp<T>(p_ex, p_id, pulses_op, s_pulses);
-    TRACE(5);
     // From the capture's start (no rise, no reset, no pulse before it).
     c.m0 = pu.ms;
     c.t = pu.tk > 0 && pu.tt == 0 ? pu.tk : 0;
-    TRACE(6);
   } else {
 #pragma unroll 1
     for (int k = 0; k < W; ++k)
@@ -870,7 +839,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
       for (int i = 0; i < kDescWords; ++i) wp.v[i] = s_desc[warp][i];
       ex = compose(wp, ex);               // the thread's prefix in the tile
     }
-    TRACE(4);
 
     // The carry into the tile.
     const Carry c0 = {-1, 0, -1, 0, 0};
@@ -883,7 +851,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
 #pragma unroll
       for (int i = 0; i < kDescWords; ++i) total.v[i] = s_total[i];
       if (tile == 0) {
-        TRACE(5);
         if (tid == 0) {
           const Carry o = apply(total, c0);
           reinterpret_cast<int4*>(incs)[0] = make_int4(o.s, o.cnt, o.l, o.m0);
@@ -896,7 +863,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
           store_desc(descs + static_cast<long long>(tile) * kDescWords, total);
           st_release(status + tile, epoch << 2 | kAgg);
         }
-        TRACE(5);
         // Look back over kWindow predecessors a round: wait for each to
         // publish, cut at the nearest inclusive carry, stage the aggregates
         // after it in shared memory (one round trip) and compose them.
@@ -999,7 +965,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
       }
     }
     __syncthreads();
-    TRACE(6);
     c = apply(ex, s_carry);
   }
 
@@ -1008,7 +973,6 @@ compat_gate_kernel(const float* __restrict__ amp, const float* __restrict__ avg,
   for (int k = 0; k < W; ++k)
     finish_word<WB>(above[k], below[k], cand[k], my_base + WB * k, n, pw_half, npc, vec_out, c,
                     trig, pulses);
-  TRACE(7);
 }
 
 // (threads a block, words a thread); a tile is 32 * T * W samples.
@@ -1094,14 +1058,5 @@ int compat_gate_launch(const float* amp, const float* avg, long long n, float fr
     default: return -1;
   }
 }
-
-#ifdef COMPAT_GATE_TRACE
-// The trace build's records of the last launch: a row of 10 a tile (clock64
-// at TRACE points 0-7, the global timer in ns, the SM), up to rows tiles.
-int compat_gate_trace(unsigned long long* dst, int rows) {
-  if (rows > kTraceRows) rows = kTraceRows;
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_trace, rows * sizeof(g_trace[0])));
-}
-#endif
 
 }  // extern "C"

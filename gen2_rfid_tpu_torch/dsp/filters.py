@@ -1,4 +1,4 @@
-"""Matched filter + decimation, the windowed sums, and |y|.
+"""Matched filter + decimation, the windowed sums and their mean, and |y|.
 
 PyTorch counterpart of ``gen2_rfid_tpu/dsp/filters.py``.  The matched filter
 keeps GNU Radio's history convention: ``ntaps-1`` zeros precede the first
@@ -10,8 +10,12 @@ boxcar taps of the main path the two agree bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 def matched_filter_decimate(iq: torch.Tensor, taps, decim: int) -> torch.Tensor:
@@ -62,6 +66,19 @@ def moving_sum(x: torch.Tensor, win: int, block: int = 8192) -> torch.Tensor:
     c = torch.cumsum(ext, dim=1, dtype=torch.float64)
     ms = c[:, halo:] - c[:, halo - win: halo + block - win]
     return ms.to(torch.float32).reshape(-1)[:n]
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor(win: int, device: torch.device) -> torch.Tensor:
+    return profiling.to_device(float(win), device, torch.float32)
+
+
+def window_mean(s: torch.Tensor, win: int) -> torch.Tensor:
+    """A windowed sum over ``win`` samples divided by ``win``: the gate's
+    average.  The divisor is a float32 tensor, copied to ``s``'s device once
+    per (win, device), so the division stays IEEE on CUDA (PyTorch turns
+    division by a Python scalar into a reciprocal multiply there)."""
+    return s / _divisor(win, s.device)
 
 
 def moving_sum_complex(x: torch.Tensor, win: int) -> torch.Tensor:

@@ -21,6 +21,9 @@ re-design of the reference gate's per-sample FSM (``gate_impl.cc:85-200``).
 
 Each compacts its triggers to a fixed ``max_events`` table and measures DC
 and CW noise at each event.
+
+``front_end`` is every capture decode's front end: it picks the build that
+the mode's gate reads and forms the gate's input from it (``gate_input``).
 """
 
 from __future__ import annotations
@@ -31,13 +34,14 @@ import torch
 
 from ..config import ReaderConfig
 from ..kernels.compat_gate import _last_le, compat_gate_for_cfg, gate_signal_state  # noqa: F401
+from ..kernels.gate_front import gate_front_for_cfg, gate_front_y_for_cfg
 from ..kernels.gate_pulses import gate_pulses
 from ..kernels.gate_scan import gate_scan_for_cfg
 from ..kernels.gate_stack import (
     MARKER, QUALIFY, QUIET, RISE, gate_stack_for_cfg, native_flags_from_amp)
 from ..runtime.frames import gather_aligned_windows_multi
 from ..utils import profiling
-from .filters import run_sum
+from .filters import run_sum, window_mean
 
 
 class GateEvents(NamedTuple):
@@ -102,13 +106,44 @@ def command_span(cfg: ReaderConfig) -> int:
     return -(-int(cmd_us * cfg.sample_rate / 1e6 + 128) // 128) * 128
 
 
+def full_build(cfg: ReaderConfig, exact_gate: bool = False) -> bool:
+    """Whether the gate reads |y| and its average, and so the front end's
+    full build (kernels/gate_front.py): compat mode and the exact gate do;
+    the native gate reads the gate-stack kernel's flags of y alone."""
+    return exact_gate or cfg.mode == "compat"
+
+
+def gate_input(y2: torch.Tensor, cfg: ReaderConfig, amp: torch.Tensor = None,
+               avgsum: torch.Tensor = None):
+    """(y, flags, amp, avg), what ``gate_detect`` reads, from a front-end
+    build's outputs: the complex y of the planar y2, then with the full
+    build's ``amp`` and windowed sum ``avgsum`` the average avgsum /
+    win_length (flags None), and without them the gate-stack kernel's flags
+    of y2 (amp and avg None)."""
+    y = torch.complex(y2[0], y2[1])
+    if amp is None:
+        return y, gate_stack_for_cfg(y2, cfg), None, None
+    return y, None, amp, window_mean(avgsum, cfg.win_length)
+
+
+def front_end(x2: torch.Tensor, cfg: ReaderConfig, exact_gate: bool = False):
+    """(y, flags, amp, avg) of a planar (2, N) float32 ADC-rate capture on
+    its device: the full build and |y| with its average where
+    ``full_build``, else the y build and the gate-stack kernel's flags of
+    y.  One ``gate_front`` launch, and one ``gate_stack`` launch native."""
+    if full_build(cfg, exact_gate):
+        y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
+        return gate_input(y2, cfg, amp, avgsum)
+    return gate_input(gate_front_y_for_cfg(x2, cfg), cfg)
+
+
 def _check_amp_avg(amp, avg, who: str) -> None:
     """Compat and the exact gate read |y| and its average from the front end
-    (kernels/gate_front.py: amp, and avgsum / win_length), so the decode has
-    one definition of the average; they compute neither themselves."""
+    (``front_end``: amp, and avgsum / win_length), so the decode has one
+    definition of the average; they compute neither themselves."""
     if amp is None or avg is None:
         raise ValueError(f"{who} needs amp and avg, |y| and its win_length "
-                         "average from the front end (kernels/gate_front.py)")
+                         "average from the front end (dsp/gate.py::front_end)")
 
 
 def _compat_triggers(amp: torch.Tensor, avg: torch.Tensor, cfg: ReaderConfig):
@@ -205,8 +240,7 @@ def gate_detect(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     else:
         if flags is None and amp is not None:
             if avg is None:
-                avg = run_sum(amp, cfg.win_length) / profiling.to_device(
-                    float(cfg.win_length), dev, torch.float32)
+                avg = window_mean(run_sum(amp, cfg.win_length), cfg.win_length)
             flags = native_flags_from_amp(amp, avg, cfg.n_samples_pw // 2, nt1,
                                           cfg.thresh_fraction)
         elif flags is None:

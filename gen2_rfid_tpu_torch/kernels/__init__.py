@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port, and how often each was launched.
 
-Each wrapper adds one to its entry in ``launches`` when it launches its CUDA
-kernel, and nowhere else: a CPU tensor takes the plain PyTorch version and
-counts nothing.  A caller that wants to show that a run went through the
+A wrapper's launch (``_build.launch``) adds one to its entry in
+``launches`` when its CUDA kernel launches, and nothing else does: a CPU
+tensor takes the plain PyTorch version and counts nothing.  A caller that wants to show that a run went through the
 kernels calls ``reset_launches()`` before it and reads ``launches`` after.
 ``stack_bodies`` splits gate_stack's launches by the kernel body that ran:
 the stream kernel at ReaderConfig's widths, the segment kernel at any other.

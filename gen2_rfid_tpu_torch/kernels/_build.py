@@ -1,10 +1,16 @@
-"""Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
+"""Build the port's CUDA kernels with nvcc at first use; load them with
+ctypes and launch them.
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface, ``build/gen2_rfid_tpu_torch/lib<name>-<hash>.so`` beside the
 package, where the hash covers the source and the flags: an edited source
 builds anew, an unchanged one is loaded as it is.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
+
+A wrapper declares its library's entry points once, as a ``Library`` of
+their C signatures, bound when the library loads, and launches a kernel
+with ``launch``: on the device's current stream, a CUDA error raised, the
+launch counted.
 
 Nothing here runs at import: the package imports on a machine without CUDA.
 """
@@ -18,7 +24,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
+
+from . import launches
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gen2_rfid_tpu_torch"
@@ -30,6 +40,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The C types of the entry points' signatures.
+I32, I64, F32, PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's register / shared-memory report of each library built by this process.
@@ -87,11 +100,36 @@ def build(names: Iterable[str] = SOURCES) -> None:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
-    return lib
+class Library:
+    """The entry points of ``csrc/<name>.cu``'s library by attribute, each
+    declared once in ``signatures`` (entry -> (restype, argtypes)) and bound
+    when the library loads, at the first use (built first if needed)."""
+
+    def __init__(self, name: str, signatures: Dict[str, Tuple[type, Sequence[type]]]):
+        self.name, self.signatures = name, signatures
+
+    def __getattr__(self, entry: str):
+        if entry not in self.signatures:
+            raise AttributeError(f"{self.name} declares no entry point {entry}")
+        lib = _libs.get(self.name)
+        if lib is None:
+            build((self.name,))
+            lib = ctypes.CDLL(str(library_path(self.name)))
+            for fn_name, (restype, argtypes) in self.signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.restype, fn.argtypes = restype, list(argtypes)
+            _libs[self.name] = lib
+        return getattr(lib, entry)
+
+
+def launch(name: str, fn, device: torch.device, *args, count: bool = True) -> None:
+    """``fn(*args, stream)``, a kernel's launch entry point, on ``device``'s
+    current stream with ``device`` current.  Its non-zero return, a CUDA
+    error, raises ``RuntimeError`` naming the kernel ``name``; a launch
+    counts one in ``kernels.launches[name]`` (none with ``count=False``)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if count:
+        launches[name] += 1

@@ -27,14 +27,14 @@ tile: the descriptors (``span_descriptors``), their combine
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from . import keep, launches
+from . import keep
 from ..config import ReaderConfig
+from ._build import F32, I32, I64, PTR, Library, launch
 
 # The kernel's configurations, (threads a block, words of 32 samples a
 # thread), as csrc/compat_gate.cu's kConfigs; a tile is 32 * threads * words.
@@ -565,39 +565,25 @@ _scratch = {}
 TICKET_BITS = 20                    # as csrc/compat_gate.cu's kTicketBits
 
 
-def _scratch_for(lib, device: torch.device, stream: int, ntiles: int) -> list:
+def _scratch_for(device: torch.device, stream: int, ntiles: int) -> list:
     key = (device.index, stream)
     entry = _scratch.get(key)
     if entry is None or entry[1] < ntiles:
         cap = 1 << max(10, (ntiles - 1).bit_length())
-        entry = [torch.zeros((lib.compat_gate_scratch_words(cap),), dtype=torch.int32,
+        entry = [torch.zeros((LIB.compat_gate_scratch_words(cap),), dtype=torch.int32,
                              device=device), cap,
                  [] if entry is None else entry[2] + [entry[0]]]
         _scratch[key] = entry
     return entry
 
 
-def _lib():
-    from ._build import library
-
-    return bind(library("compat_gate"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """lib with the C signatures of csrc/compat_gate.cu's entry points."""
-    lib.compat_gate_launch.restype = ctypes.c_int
-    lib.compat_gate_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.compat_gate_scratch_words.restype = ctypes.c_longlong
-    lib.compat_gate_scratch_words.argtypes = [ctypes.c_longlong]
-    lib.compat_gate_tile.restype = ctypes.c_int
-    lib.compat_gate_tile.argtypes = [ctypes.c_int]
-    lib.compat_gate_configs.restype = ctypes.c_int
-    lib.compat_gate_configs.argtypes = []
-    return lib
+LIB = Library("compat_gate", {
+    "compat_gate_launch": (I32, (PTR, PTR, I64, F32, I32, I32, I32, I32, PTR, PTR, PTR, I32,
+                                 PTR)),
+    "compat_gate_scratch_words": (I64, (I64,)),
+    "compat_gate_tile": (I32, (I32,)),
+    "compat_gate_configs": (I32, ()),
+})
 
 
 def compat_gate(amp: torch.Tensor, avg: torch.Tensor, frac: float, pw_half: int,
@@ -629,19 +615,17 @@ def compat_gate(amp: torch.Tensor, avg: torch.Tensor, frac: float, pw_half: int,
     pulses_at = torch.empty((n,), dtype=torch.int32, device=amp.device)
     if n == 0:
         return trig, pulses_at
-    lib = _lib()
     ntiles = -(-n // tile)
-    with torch.cuda.device(amp.device):
-        stream = torch.cuda.current_stream(amp.device).cuda_stream
-        entry = _scratch_for(lib, amp.device, stream, ntiles) if ntiles > 1 else None
-        err = lib.compat_gate_launch(
-            amp.data_ptr(), avg.data_ptr(), n, frac, pw_half, nt1, npc, config,
-            trig.data_ptr(), pulses_at.data_ptr(), entry[0].data_ptr() if entry else None,
-            entry[1] if entry else 0, stream)
-    if err:
+    stream = torch.cuda.current_stream(amp.device).cuda_stream
+    entry = _scratch_for(amp.device, stream, ntiles) if ntiles > 1 else None
+    try:
+        launch("compat_gate", LIB.compat_gate_launch, amp.device, amp.data_ptr(),
+               avg.data_ptr(), n, frac, pw_half, nt1, npc, config, trig.data_ptr(),
+               pulses_at.data_ptr(), entry[0].data_ptr() if entry else None,
+               entry[1] if entry else 0)
+    except RuntimeError:
         _scratch.pop((amp.device.index, stream), None)
-        raise RuntimeError(f"compat_gate kernel launch failed: CUDA error {err}")
-    launches["compat_gate"] += 1
+        raise
     keep("compat_gate", (amp, avg), (frac, pw_half, nt1, npc))
     return trig, pulses_at
 

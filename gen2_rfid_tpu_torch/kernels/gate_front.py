@@ -33,15 +33,15 @@ taps without multiplying by them: it is boxcar-only, like the Pallas kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
 
-from . import front_bodies, keep, launches
+from . import front_bodies, keep
 from ..config import ReaderConfig
 from ..dsp.filters import magnitude
+from ._build import I32, I64, PTR, Library, launch
 
 
 def _windowed(v: torch.Tensor, w: int) -> torch.Tensor:
@@ -86,26 +86,12 @@ Y_GROUP = 8                  # consecutive y a thread of the y build sums
 SMEM_LIMIT = 232448          # bytes of shared memory a block may take on Hopper
 
 
-def _lib():
-    from ._build import library
-
-    lib = library("gate_front")
-    lib.gate_front_launch.restype = ctypes.c_int
-    lib.gate_front_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.gate_front_smem_bytes.restype = ctypes.c_longlong
-    lib.gate_front_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.gate_front_y_launch.restype = ctypes.c_int
-    lib.gate_front_y_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.gate_front_y_smem_bytes.restype = ctypes.c_longlong
-    lib.gate_front_y_smem_bytes.argtypes = [ctypes.c_int] * 3
-    return lib
+LIB = Library("gate_front", {
+    "gate_front_launch": (I32, (PTR, I64, I32, I32, I32, I32, I32, PTR, PTR, PTR, PTR, PTR)),
+    "gate_front_smem_bytes": (I64, (I32,) * 5),
+    "gate_front_y_launch": (I32, (PTR, I64, I32, I32, I32, PTR, PTR)),
+    "gate_front_y_smem_bytes": (I64, (I32,) * 3),
+})
 
 
 def _check_planar(x2: torch.Tensor, name: str) -> None:
@@ -118,9 +104,8 @@ def fitting_block_y(decim: int, n_taps: int, win: int, dcw: int) -> int:
     """The largest tile up to ``BLOCK_Y`` (a multiple of 4) whose slab and
     halo the kernel takes: a halo of max(W, D)-1 y needs more passes of a
     block's threads and more shared memory as the sample rate grows."""
-    lib = _lib()
     for block_y in range(BLOCK_Y, 0, -4):
-        if 0 <= lib.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y) <= SMEM_LIMIT:
+        if 0 <= LIB.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y) <= SMEM_LIMIT:
             return block_y
     raise ValueError(f"gate_front: no tile fits widths decim={decim}, taps={n_taps}, "
                      f"W={win}, D={dcw}")
@@ -151,22 +136,16 @@ def gate_front(x2: torch.Tensor, decim: int, n_taps: int, win: int, dcw: int,
     dcsum2 = torch.empty_like(y2)
     if ny == 0:
         return y2, amp, avgsum, dcsum2
-    lib = _lib()
-    smem = lib.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y)
+    smem = LIB.gate_front_smem_bytes(decim, n_taps, win, dcw, block_y)
     if smem < 0:
         raise ValueError(f"gate_front: block_y={block_y} is too large: a thread keeps "
                          f"at most 6 groups of 4 y")
     if smem > SMEM_LIMIT:
         raise ValueError(f"gate_front: block_y={block_y} is too large: it needs {smem} "
                          f"bytes of shared memory a block, over the card's {SMEM_LIMIT}")
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.gate_front_launch(x2.data_ptr(), n, decim, n_taps, win, dcw, block_y,
-                                    y2.data_ptr(), amp.data_ptr(), avgsum.data_ptr(),
-                                    dcsum2.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"gate_front kernel launch failed: CUDA error {err}")
-    launches["gate_front"] += 1
+    launch("gate_front", LIB.gate_front_launch, x2.device, x2.data_ptr(), n, decim, n_taps,
+           win, dcw, block_y, y2.data_ptr(), amp.data_ptr(), avgsum.data_ptr(),
+           dcsum2.data_ptr())
     front_bodies["full"] += 1
     keep("gate_front", x2, ("full", decim, n_taps, win, dcw, block_y))
     return y2, amp, avgsum, dcsum2
@@ -177,9 +156,8 @@ def _fitting_y_tile(decim: int, n_taps: int) -> int:
     """``BLOCK_Y_Y``, or the largest multiple of 8 below it whose two slabs
     fit a block's shared memory (a slab holds (block_y - 1)*decim + T
     samples a plane, so only a wide decimation or filter shrinks it)."""
-    lib = _lib()
     for block_y in range(BLOCK_Y_Y, 0, -Y_GROUP):
-        if lib.gate_front_y_smem_bytes(decim, n_taps, block_y) <= SMEM_LIMIT:
+        if LIB.gate_front_y_smem_bytes(decim, n_taps, block_y) <= SMEM_LIMIT:
             return block_y
     raise ValueError(f"gate_front_y: no tile fits decim={decim}, taps={n_taps}")
 
@@ -220,18 +198,12 @@ def gate_front_y(x2: torch.Tensor, decim: int, n_taps: int,
     y2 = torch.empty((2, n // decim), dtype=torch.float32, device=x2.device)
     if y2.shape[1] == 0:
         return y2
-    lib = _lib()
-    smem = lib.gate_front_y_smem_bytes(decim, n_taps, block_y)
+    smem = LIB.gate_front_y_smem_bytes(decim, n_taps, block_y)
     if smem > SMEM_LIMIT:
         raise ValueError(f"gate_front_y: block_y={block_y} is too large: it needs {smem} "
                          f"bytes of shared memory a block, over the card's {SMEM_LIMIT}")
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.gate_front_y_launch(x2.data_ptr(), n, decim, n_taps, block_y,
-                                      y2.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"gate_front_y kernel launch failed: CUDA error {err}")
-    launches["gate_front"] += 1
+    launch("gate_front", LIB.gate_front_y_launch, x2.device, x2.data_ptr(), n, decim, n_taps,
+           block_y, y2.data_ptr())
     front_bodies["y"] += 1
     keep("gate_front", x2, ("y", decim, n_taps, block_y))
     return y2

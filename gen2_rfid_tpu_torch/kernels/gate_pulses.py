@@ -27,13 +27,13 @@ by the tests; the decode never calls it.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from . import keep, launches
+from . import keep
+from ._build import I32, I64, PTR, Library, launch
 from .gate_stack import MARKER, QUALIFY, QUIET, RISE
 
 THREADS = 256        # csrc/gate_pulses.cu's kThreads
@@ -214,25 +214,17 @@ def pulse_cases(nt1: int, window: int, bsz: int, seed: int = 0) -> List[Tuple[st
 
 # ---- the wrapper -----------------------------------------------------------
 
-def _lib():
-    from ._build import library
-
-    lib = library("gate_pulses")
-    lib.gate_pulses_launch.restype = ctypes.c_int
-    lib.gate_pulses_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.gate_pulses_geometry.restype = ctypes.c_int
-    lib.gate_pulses_geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib
+LIB = Library("gate_pulses", {
+    "gate_pulses_launch": (I32, (PTR, I64, I32, I32, I32, I32, PTR, PTR, PTR, PTR)),
+    "gate_pulses_geometry": (I32, (I32, I32, PTR)),
+})
 
 
 def kernel_geometry(window: int, bsz: int) -> Tuple[int, int, int, int]:
     """``tile_geometry`` as the built kernel computes it (the card's check
     that the model and ``pulse_cases`` tile as the kernel does)."""
-    out = (ctypes.c_longlong * 4)()
-    err = _lib().gate_pulses_geometry(window, block_step(bsz), out)
+    out = (I64 * 4)()
+    err = LIB.gate_pulses_geometry(window, block_step(bsz), out)
     if err:
         raise ValueError(f"gate_pulses cannot tile window {window}, bsz {bsz}")
     return tuple(int(v) for v in out)
@@ -265,14 +257,7 @@ def gate_pulses(flags: torch.Tensor, nt1: int, npc: int, bsz: int, window: int
     if n == 0:
         return cand, pulses, torch.zeros((2,), dtype=torch.int32, device=dev)
     counts = torch.empty((2,), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gate_pulses_launch(flags.data_ptr(), n, nt1, npc, step, window,
-                                     cand.data_ptr(), pulses.data_ptr(), counts.data_ptr(),
-                                     stream)
-    if err:
-        raise RuntimeError(f"gate_pulses kernel launch failed: CUDA error {err}")
-    launches["gate_pulses"] += 1
+    launch("gate_pulses", LIB.gate_pulses_launch, dev, flags.data_ptr(), n, nt1, npc, step,
+           window, cand.data_ptr(), pulses.data_ptr(), counts.data_ptr())
     keep("gate_pulses", flags, (nt1, npc, bsz, window))
     return cand, pulses, counts

@@ -21,14 +21,13 @@ tests and ``chip_smoke.py``; the decode never calls it.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from . import launches
 from ..config import ReaderConfig
+from ._build import F32, I32, I64, PTR, Library, launch
 
 def gate_scan_plain(amp: torch.Tensor, avg: torch.Tensor, frac: float,
                     pw_half: int, nt1: int, npc: int, rn16_window: int,
@@ -303,19 +302,11 @@ def random_runs(seed: int):
     return torch.from_numpy(amp), torch.ones(n), args
 
 
-def _lib():
-    from ._build import library
-
-    lib = library("gate_scan")
-    lib.gate_scan_launch.restype = ctypes.c_int
-    lib.gate_scan_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.gate_scan_scratch_words.restype = ctypes.c_longlong
-    lib.gate_scan_scratch_words.argtypes = [ctypes.c_longlong]
-    return lib
+LIB = Library("gate_scan", {
+    "gate_scan_launch": (I32, (PTR, PTR, I64, F32, I32, I32, I32, I32, I32, PTR, PTR, PTR,
+                               PTR)),
+    "gate_scan_scratch_words": (I64, (I64,)),
+})
 
 
 def gate_scan(amp: torch.Tensor, avg: torch.Tensor, frac: float, pw_half: int,
@@ -342,17 +333,11 @@ def gate_scan(amp: torch.Tensor, avg: torch.Tensor, frac: float, pw_half: int,
     pulses_out = torch.empty((n,), dtype=torch.int32, device=amp.device)
     if n == 0:
         return trig.bool(), pulses_out
-    lib = _lib()
-    scratch = torch.empty((lib.gate_scan_scratch_words(n),), dtype=torch.int32,
+    scratch = torch.empty((LIB.gate_scan_scratch_words(n),), dtype=torch.int32,
                           device=amp.device)
-    with torch.cuda.device(amp.device):
-        stream = torch.cuda.current_stream(amp.device).cuda_stream
-        err = lib.gate_scan_launch(amp.data_ptr(), avg.data_ptr(), n, frac, pw_half,
-                                   nt1, npc, rn16_window, epc_window, trig.data_ptr(),
-                                   pulses_out.data_ptr(), scratch.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"gate_scan kernel launch failed: CUDA error {err}")
-    launches["gate_scan"] += 1
+    launch("gate_scan", LIB.gate_scan_launch, amp.device, amp.data_ptr(), avg.data_ptr(), n,
+           frac, pw_half, nt1, npc, rn16_window, epc_window, trig.data_ptr(),
+           pulses_out.data_ptr(), scratch.data_ptr())
     return trig.bool(), pulses_out
 
 

@@ -40,14 +40,14 @@ and pw/2.  ``gate_stack_segment_plain`` models it in PyTorch and
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from . import keep, launches, stack_bodies
+from . import keep, stack_bodies
 from ..config import ReaderConfig
-from ..dsp.filters import magnitude, run_sum
+from ..dsp.filters import magnitude, run_sum, window_mean
+from ._build import F32, I32, I64, PTR, Library, launch
 from .gate_front import SMEM_LIMIT
 
 RISE, QUALIFY, MARKER, QUIET = 1, 2, 4, 8
@@ -87,9 +87,7 @@ def gate_stack_plain(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
     """Plain PyTorch version of the kernel: (2, Ny) -> (Ny,) int32 flags:
     |y|, its ``run_sum`` average, then ``native_flags_from_amp``."""
     amp = magnitude(y2[0], y2[1])
-    # A tensor divisor keeps the division IEEE on CUDA too (PyTorch turns
-    # division by a Python scalar into a reciprocal multiply there).
-    avg = run_sum(amp, win) / torch.tensor(float(win), dtype=torch.float32, device=y2.device)
+    avg = window_mean(run_sum(amp, win), win)
     return native_flags_from_amp(amp, avg, pw_half, nt1, frac)
 
 
@@ -467,23 +465,11 @@ def segment_cases():
 
 # ---- the wrapper -----------------------------------------------------------
 
-def _library():
-    from ._build import library
-
-    lib = library("gate_stack")
-    lib.gate_stack_launch.restype = ctypes.c_int
-    lib.gate_stack_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.gate_stack_check_arith.restype = ctypes.c_int
-    lib.gate_stack_check_arith.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.gate_stack_shape.restype = ctypes.c_int
-    lib.gate_stack_shape.argtypes = [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    return lib
+LIB = Library("gate_stack", {
+    "gate_stack_launch": (I32, (PTR, I64, I32, I32, I32, F32, I32, PTR, PTR)),
+    "gate_stack_check_arith": (I32, (PTR, PTR)),
+    "gate_stack_shape": (I32, (I64, I32, I32, I32, I32, PTR)),
+})
 
 
 def gate_stack_flags(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
@@ -512,14 +498,8 @@ def gate_stack_flags(y2: torch.Tensor, win: int, pw_half: int, nt1: int,
     flags = torch.empty((ny,), dtype=torch.int32, device=y2.device)
     if ny == 0:
         return flags
-    lib = _library()
-    with torch.cuda.device(y2.device):
-        stream = torch.cuda.current_stream(y2.device).cuda_stream
-        err = lib.gate_stack_launch(y2.data_ptr(), ny, win, pw_half, nt1, frac, run,
-                                    flags.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"gate_stack kernel launch failed: CUDA error {err}")
-    launches["gate_stack"] += 1
+    launch("gate_stack", LIB.gate_stack_launch, y2.device, y2.data_ptr(), ny, win, pw_half,
+           nt1, frac, run, flags.data_ptr())
     stack_bodies[body] += 1
     keep("gate_stack", y2, (win, pw_half, nt1, frac, run))
     return flags
@@ -530,8 +510,8 @@ def gate_stack_shape(ny: int, win: int, pw_half: int, nt1: int, run: int = 0) ->
     threads a block, resident blocks an SM, SMs, the run in words (a warp's
     in the stream kernel, a block's segment in the segment kernel) and
     shared memory a block."""
-    out = (ctypes.c_longlong * 6)()
-    err = _library().gate_stack_shape(ny, win, pw_half, nt1, run, out)
+    out = (I64 * 6)()
+    err = LIB.gate_stack_shape(ny, win, pw_half, nt1, run, out)
     if err:
         raise RuntimeError(f"gate_stack shape query failed: CUDA error {err}")
     keys = ("grid", "threads", "blocks_per_sm", "sms", "run", "smem_bytes")
@@ -544,11 +524,8 @@ def check_arith(device="cuda") -> dict:
     [2^-100, FLT_MAX]), on the card: the count of inputs where each differs
     and the smallest such input's bits (``None`` when there is none)."""
     out = torch.tensor([0, 0, -1, -1], dtype=torch.int64, device=device)
-    with torch.cuda.device(out.device):
-        err = _library().gate_stack_check_arith(
-            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"gate_stack arithmetic check failed to launch: CUDA error {err}")
+    launch("gate_stack arithmetic check", LIB.gate_stack_check_arith, out.device,
+           out.data_ptr(), count=False)
     n_sqrt, n_div, b_sqrt, b_div = out.tolist()
     return {"sqrt_differs": n_sqrt, "div_differs": n_div,
             "first_sqrt": None if b_sqrt < 0 else b_sqrt,

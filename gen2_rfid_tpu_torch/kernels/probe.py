@@ -10,26 +10,16 @@ agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from ._build import I32, I64, PTR, Library, launch
+
+LIB = Library("probe", {"probe_launch": (I32, (PTR, I64, PTR, PTR))})
 
 
 def probe_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel."""
     return x * 2.0 + 1.0
-
-
-def _launcher():
-    from ._build import library
-
-    fn = library("probe").probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    return fn
 
 
 def probe(x: torch.Tensor) -> torch.Tensor:
@@ -45,11 +35,5 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel() == 0:
         return out
-    launch = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(x.data_ptr(), x.numel(), out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
-    launches["probe"] += 1
+    launch("probe", LIB.probe_launch, x.device, x.data_ptr(), x.numel(), out.data_ptr())
     return out

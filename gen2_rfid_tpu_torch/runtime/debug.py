@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
-from ..dsp.filters import magnitude, matched_filter_decimate, moving_sum
+from ..dsp.filters import magnitude, matched_filter_decimate, moving_sum, window_mean
 from ..dsp.gate import gate_detect
 from .inventory import decode_events, matched_taps, replay_inventory, resolve_device
 
@@ -35,9 +35,7 @@ def decode_capture_debug(iq, cfg: ReaderConfig, device=None) -> Dict[str, np.nda
     x = torch.from_numpy(np.array(iq, np.complex64)).to(dev)
     y = matched_filter_decimate(x, matched_taps(cfg), cfg.decim)
     amp = magnitude(y.real, y.imag)
-    # A tensor divisor keeps the division IEEE on CUDA.
-    avg = moving_sum(amp, cfg.win_length) / torch.tensor(
-        float(cfg.win_length), dtype=torch.float32, device=dev)
+    avg = window_mean(moving_sum(amp, cfg.win_length), cfg.win_length)
     if cfg.mode == "compat":
         events = gate_detect(y, cfg, amp=amp, avg=avg)
     else:

@@ -21,7 +21,7 @@ import torch
 
 from ..config import ReaderConfig
 from ..dsp import mrc
-from ..dsp.filters import moving_sum, run_sum
+from ..dsp.filters import moving_sum, run_sum, window_mean
 from ..dsp.gate import _event_window_stats, gate_detect
 from ..kernels.gate_front import gate_front_y_for_cfg
 from .frames import gather_aligned_windows_multi
@@ -58,7 +58,7 @@ def decode_capture_mrc_planar(iq2c, cfg: ReaderConfig, device=None
         p = p + (v[0] * v[0] + v[1] * v[1])
     amp = torch.sqrt(p.to(torch.float64)).to(_F32)
     msum = moving_sum(amp, cfg.win_length) if cfg.mode == "compat" else run_sum(amp, cfg.win_length)
-    avg = msum / torch.tensor(float(cfg.win_length), dtype=_F32, device=dev)
+    avg = window_mean(msum, cfg.win_length)
     events = gate_detect(ys[0], cfg, amp=amp, avg=avg)
     cmd = classify_commands(events.n_pulses, cfg)
     ev_c = torch.clamp(events.index, max=n - 1)

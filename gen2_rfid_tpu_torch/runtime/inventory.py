@@ -38,10 +38,9 @@ import torch
 from ..config import ReaderConfig
 from ..dsp import fm0, miller, sync
 from ..dsp.filters import boxcar_taps
-from ..dsp.gate import GateEvents, gate_detect, gate_detect_scan
+from ..dsp.gate import GateEvents, front_end, gate_detect, gate_detect_scan
 from ..dsp.interference import cancel_cw_planar
-from ..kernels.gate_front import front_taps, gate_front_for_cfg, gate_front_y_for_cfg
-from ..kernels.gate_stack import gate_stack_for_cfg
+from ..kernels.gate_front import front_taps
 from ..protocol.crc import crc16_affine
 from ..utils import profiling
 from .frames import extract_windows, gather_aligned_windows_multi
@@ -619,14 +618,15 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
     """Full pipeline from a planar (2, N) float32 ADC-rate capture
     (inventory.py:890-919).
 
-    ``cfg.cancel_cw`` first subtracts strong CW tones.  Native mode takes y
-    alone from the front end's y build, as the JAX package's default path
-    computes y alone, and gates on the gate-stack kernel's flags of y;
-    compat mode and ``exact_gate`` take y, |y| and the windowed |y| sum from
-    the full build and gate on |y| and avg = sum / win_length, which is the
-    JAX package's ``pallas_front`` path.  Runs on CUDA unless ``device``
-    says otherwise.  The call is the span ``gen2.decode_capture`` and the
-    front end ``gen2.front`` (utils/profiling.py)."""
+    ``cfg.cancel_cw`` first subtracts strong CW tones.  The front end
+    (dsp/gate.py::front_end) takes y alone from its y build in native mode,
+    as the JAX package's default path computes y alone, and the gate reads
+    the gate-stack kernel's flags of y; compat mode and ``exact_gate`` take
+    y, |y| and the windowed |y| sum from the full build and gate on |y| and
+    avg = sum / win_length, which is the JAX package's ``pallas_front``
+    path.  Runs on CUDA unless ``device`` says otherwise.  The call is the
+    span ``gen2.decode_capture`` and the front end ``gen2.front``
+    (utils/profiling.py)."""
     dev = resolve_device(device)
     decodes["capture"] += 1
     with profiling.span("gen2.decode_capture", allocator=dev, samples=np.shape(iq2)[-1]):
@@ -637,18 +637,7 @@ def decode_capture_planar(iq2, cfg: ReaderConfig, exact_gate: bool = False,
             x2 = x2.to(dev).contiguous()
             if cfg.cancel_cw:
                 x2 = cancel_cw_planar(x2, cfg.cancel_cw).contiguous()
-            flags = amp = avg = None
-            if exact_gate or cfg.mode == "compat":
-                y2, amp, avgsum, _ = gate_front_for_cfg(x2, cfg)
-                y = torch.complex(y2[0], y2[1])
-                # A tensor divisor keeps the division IEEE on CUDA (PyTorch
-                # turns division by a Python scalar into a reciprocal
-                # multiply there).
-                avg = avgsum / profiling.to_device(float(cfg.win_length), dev, torch.float32)
-            else:
-                y2 = gate_front_y_for_cfg(x2, cfg)
-                y = torch.complex(y2[0], y2[1])
-                flags = gate_stack_for_cfg(y2, cfg)
+            y, flags, amp, avg = front_end(x2, cfg, exact_gate)
         return decode_block(y, cfg, flags, exact_gate, amp, avg)
 
 

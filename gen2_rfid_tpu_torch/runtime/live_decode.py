@@ -61,17 +61,16 @@ def _window_decoder(cfg: ReaderConfig, mode: str, device: torch.device):
     tags that drew the same RN16, each judged by its CRC-16) | "acc:<n>"
     (an n-bit access-command reply; its CRC is checked on the host).
 
-    Native mode gates on the gate-stack kernel's flags of the front end's
-    y (its y build), compat on the full build's |y| and windowed average,
-    so each decode launches ``gate_front`` once and, in native mode,
-    ``gate_stack`` once.  The
-    window starts at the newest valid event, clamped into the block as
-    ``lax.dynamic_slice`` clamps; every detector takes a batch of one."""
+    The block goes through the capture decode's front end
+    (dsp/gate.py::front_end): native mode gates on the gate-stack kernel's
+    flags of the y build's y, compat on the full build's |y| and windowed
+    average, so each decode launches ``gate_front`` once and, in native
+    mode, ``gate_stack`` once.  The window starts at the newest valid
+    event, clamped into the block as ``lax.dynamic_slice`` clamps; every
+    detector takes a batch of one."""
     from ..dsp import fm0, miller, sync
     from ..dsp.collision import epc_sic_batch, rn16_sic_batch
-    from ..dsp.gate import gate_detect
-    from ..kernels.gate_front import gate_front_for_cfg, gate_front_y_for_cfg
-    from ..kernels.gate_stack import gate_stack_for_cfg
+    from ..dsp.gate import front_end, gate_detect
     from .inventory import _validate_epc_soft
 
     ev_cfg = dataclasses.replace(cfg, max_events=8)
@@ -82,17 +81,10 @@ def _window_decoder(cfg: ReaderConfig, mode: str, device: torch.device):
     else:
         w = cfg.epc_window if want_epc else cfg.rn16_window
     offsets = torch.arange(w, device=device)
-    win = torch.tensor(float(cfg.win_length), dtype=torch.float32, device=device)
 
     def run(block2: torch.Tensor) -> torch.Tensor:
-        if cfg.mode == "compat":
-            y2, amp, avgsum, _ = gate_front_for_cfg(block2, cfg)
-            y = torch.complex(y2[0], y2[1])
-            ev = gate_detect(y, ev_cfg, amp=amp, avg=avgsum / win)
-        else:
-            y2 = gate_front_y_for_cfg(block2, cfg)
-            y = torch.complex(y2[0], y2[1])
-            ev = gate_detect(y, ev_cfg, gate_stack_for_cfg(y2, cfg))
+        y, flags, amp, avg = front_end(block2, cfg)
+        ev = gate_detect(y, ev_cfg, flags, amp, avg)
         # Newest command event (invalid slots hold index n, so mask first).
         ny = y.shape[0]
         idx_arr = torch.where(ev.valid, ev.index, -1)

@@ -11,9 +11,9 @@ channels [k*C/n_chan, (k+1)*C/n_chan).  Then
   is the capture's zero history at the first shard and its zero tail at
   the last.  ``block_span`` holds that rule, for the blocks cut here and
   for those that shard/distributed.py reads from a file;
-* each block's front end (one ``gate_front`` launch: ``_fir_valid``'s y
-  build native, ``front_valid``'s full build compat), gate (native: one
-  ``gate_stack`` launch) and decode run on its device; the
+* each block's front end (``gate_block``: one ``gate_front`` launch,
+  ``_fir_valid``'s y build native, ``front_valid``'s full build compat),
+  gate (native: one ``gate_stack`` launch) and decode run on its device; the
   blocks that share a device decode as one batch (``decode_events_multi``
   over every channel of every such position, native mode), since every
   extended block has the same length;
@@ -37,9 +37,8 @@ import numpy as np
 import torch
 
 from ..config import ReaderConfig
-from ..dsp.gate import GateEvents, gate_detect
+from ..dsp.gate import GateEvents, full_build, gate_detect, gate_input
 from ..kernels.gate_front import front_taps, gate_front, gate_front_y
-from ..kernels.gate_stack import gate_stack_for_cfg
 from ..runtime.inventory import (DecodedEvents, decode_events, decode_events_multi,
                                  replay_inventory, replay_inventory_batch)
 from ..runtime.stats import InventoryStats
@@ -153,18 +152,14 @@ def extended_block(x: torch.Tensor, t: int, n_block: int, halo: Tuple[int, int],
 
 def gate_block(x2: torch.Tensor, cfg: ReaderConfig, cap_cfg: ReaderConfig):
     """(y, events) of a block without implicit history: one ``gate_front``
-    launch, then the gate at ``cap_cfg``'s capacity on ``gate_stack``'s
-    flags of ``_fir_valid``'s y (native, one launch) or on |y| and its
-    windowed average from ``front_valid`` (compat)."""
-    if cfg.mode == "compat":
-        y2, amp, avgsum = front_valid(x2, cfg)
-        y = torch.complex(y2[0], y2[1])
-        avg = avgsum / torch.tensor(float(cfg.win_length), dtype=torch.float32,
-                                    device=x2.device)
-        return y, gate_detect(y, cap_cfg, amp=amp, avg=avg)
-    y2 = _fir_valid(x2, cfg)
-    y = torch.complex(y2[0], y2[1])
-    return y, gate_detect(y, cap_cfg, gate_stack_for_cfg(y2, cfg))
+    launch, ``front_valid``'s full build where the gate reads |y| (compat,
+    dsp/gate.py::full_build) and ``_fir_valid``'s y build elsewhere, then
+    the gate at ``cap_cfg``'s capacity on what ``gate_input`` forms of it:
+    |y| and its windowed average, or ``gate_stack``'s flags of y (one
+    launch)."""
+    y2, *amp_sum = front_valid(x2, cfg) if full_build(cfg) else (_fir_valid(x2, cfg),)
+    y, flags, amp, avg = gate_input(y2, cfg, *amp_sum)
+    return y, gate_detect(y, cap_cfg, flags, amp, avg)
 
 
 def _shard_body(x_ext: torch.Tensor, me: Sequence[int], *, cfg: ReaderConfig,

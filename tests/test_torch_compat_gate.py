@@ -17,8 +17,7 @@
   golden scene with exact ties put in, alone and in runs.
 * The wrapper on CPU tensors runs the plain version, counts no launch and
   keeps nothing; it rejects other shapes and devices.  ``choose_config``
-  picks the configurations the card's sweep found, and the trace tool
-  (``tools/compat_gate_trace.py``) exits 2 without a card.
+  picks the configurations the card's sweep found.
 """
 
 import numpy as np
@@ -201,13 +200,6 @@ def test_choose_config(n, nt1, want):
     CONFIGS."""
     assert cg.choose_config(n, nt1) == want
     assert 0 <= want < len(cg.CONFIGS)
-
-
-def test_trace_tool_needs_cuda(monkeypatch):
-    from gen2_rfid_tpu_torch.tools import compat_gate_trace
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert compat_gate_trace.main([]) == 2
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])

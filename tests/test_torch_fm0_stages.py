@@ -28,6 +28,7 @@ from gen2_rfid_tpu.sim.tag import Tag as RefTag
 from gen2_rfid_tpu.sim.trace import golden_trace, synthesize_inventory
 from gen2_rfid_tpu_torch.dsp import fm0, sync
 from gen2_rfid_tpu_torch.dsp.interference import cancel_cw, cancel_cw_planar
+from gen2_rfid_tpu_torch.kernels.gate_front import gate_front_for_cfg
 from gen2_rfid_tpu_torch.runtime import inventory as inv
 from gen2_rfid_tpu_torch.runtime import softfix
 from gen2_rfid_tpu_torch.runtime.frames import extract_windows
@@ -198,7 +199,7 @@ def test_payload_detect_matches_reference(golden_iq):
     ref_cfg = RefConfig()
     cfg = port_cfg(ref_cfg)
     stats, dec = inv.decode_capture(golden_iq, cfg, device="cpu")
-    y2 = inv.gate_front_for_cfg(inv.to_planar(golden_iq), cfg)[0]
+    y2 = gate_front_for_cfg(inv.to_planar(golden_iq), cfg)[0]
     y = torch.complex(y2[0], y2[1])
     events = inv.gate_detect(y, cfg)
     frames, _, _, _ = extract_windows(y, events, cfg)
@@ -220,7 +221,7 @@ def test_single_frame_detectors_match_reference(golden_iq):
     package's and to the batched decode's, T_half to 1e-6."""
     ref_cfg = RefConfig()
     cfg = port_cfg(ref_cfg)
-    y2 = inv.gate_front_for_cfg(inv.to_planar(golden_iq), cfg)[0]
+    y2 = gate_front_for_cfg(inv.to_planar(golden_iq), cfg)[0]
     y = torch.complex(y2[0], y2[1])
     events = inv.gate_detect(y, cfg)
     frames, magn2, _, _ = extract_windows(y, events, cfg)

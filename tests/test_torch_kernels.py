@@ -249,3 +249,30 @@ def test_build_flags_keep_ieee_rounding():
         path = _build.library_path(name)
         assert path == _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and name in path.name
+
+
+@pytest.mark.parametrize("code", [0, 700])
+def test_launch_raises_a_cuda_error_and_counts_a_launch(monkeypatch, code):
+    """``_build.launch`` calls the entry point with its arguments and the
+    device's current stream; a non-zero code raises naming the kernel and
+    counts nothing, a zero code counts one launch."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=1234))
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return code
+
+    before = dict(kernels.launches)
+    if code:
+        with pytest.raises(RuntimeError, match="^probe kernel launch failed: CUDA error 700$"):
+            _build.launch("probe", entry, torch.device("cuda"), 7, 8)
+    else:
+        _build.launch("probe", entry, torch.device("cuda"), 7, 8)
+    assert calls == [(7, 8, 1234)]
+    assert kernels.launches == {**before, "probe": before["probe"] + (code == 0)}
