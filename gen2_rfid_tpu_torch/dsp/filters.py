@@ -68,9 +68,11 @@ def moving_sum(x: torch.Tensor, win: int, block: int = 8192) -> torch.Tensor:
     return ms.to(torch.float32).reshape(-1)[:n]
 
 
-@functools.lru_cache(maxsize=None)
-def _divisor(win: int, device: torch.device) -> torch.Tensor:
-    return profiling.to_device(float(win), device, torch.float32)
+@functools.lru_cache(maxsize=64)
+def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``value`` on a device, copied once per
+    (value, device) and kept for the next decode."""
+    return profiling.to_device(float(value), device, torch.float32)
 
 
 def window_mean(s: torch.Tensor, win: int) -> torch.Tensor:
@@ -78,7 +80,7 @@ def window_mean(s: torch.Tensor, win: int) -> torch.Tensor:
     average.  The divisor is a float32 tensor, copied to ``s``'s device once
     per (win, device), so the division stays IEEE on CUDA (PyTorch turns
     division by a Python scalar into a reciprocal multiply there)."""
-    return s / _divisor(win, s.device)
+    return s / f32_scalar(win, s.device)
 
 
 def moving_sum_complex(x: torch.Tensor, win: int) -> torch.Tensor:

@@ -56,14 +56,22 @@ def _half_bit_offsets(cfg: ReaderConfig, n_half: int):
     return offs, span
 
 
+@functools.lru_cache(maxsize=32)
+def _half_bit_offsets_device(cfg: ReaderConfig, n_half: int, device: torch.device):
+    """``_half_bit_offsets`` with the offsets on a device, kept for the next
+    decode."""
+    offs, span = _half_bit_offsets(cfg, n_half)
+    return profiling.to_device(offs, device), span
+
+
 def _diff_samples(frames: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig,
                   n_half: int) -> torch.Tensor:
     """(E, n_half/2) differential samples d_j = s[2j] - s[2j+1] at the
     half-bit offsets past each frame's (clamped) sync index."""
-    offs, span = _half_bit_offsets(cfg, n_half)
+    offs, span = _half_bit_offsets_device(cfg, n_half, frames.device)
     w = frames.shape[1]
     start = torch.clamp(index.to(torch.int64), 0, w - span)
-    pos = start[:, None] + profiling.to_device(offs, frames.device)[None, :]
+    pos = start[:, None] + offs[None, :]
     s = frames.gather(1, pos)
     return s[:, 0::2] - s[:, 1::2]
 
@@ -143,6 +151,18 @@ def _energy_positions(cfg: ReaderConfig):
     return pos.astype(np.int64), k
 
 
+@functools.lru_cache(maxsize=32)
+def _period_device(cfg: ReaderConfig, device: torch.device):
+    """The period search's tables on a device, kept for the next decode: the
+    (steps, n_probe) int64 probe offsets, the (steps,) float32 candidates,
+    and the (steps, n_bits) int64 bit positions ``_bit_position_tables``
+    gives."""
+    probes, _ = _energy_positions(cfg)
+    cand, _ = epc_period_grid(cfg)
+    i1, i2, _ = _bit_position_tables(cfg)
+    return tuple(profiling.to_device(a, device) for a in (probes, cand, i1, i2))
+
+
 def _energy_starts(index: torch.Tensor, w: int, cfg: ReaderConfig):
     """Where each frame's energy probes start (fm0.py:238-256, :300-313):
     with room to fold the sync offsets, b0 + clip(index - b0, 0, n_off-1);
@@ -162,14 +182,13 @@ def epc_period(magn2: torch.Tensor, index: torch.Tensor, cfg: ReaderConfig
     |frame|^2 energy at its probe positions past each index, first maximum
     (fm0.py:291-316).  magn2 (E, W) float32."""
     dev = magn2.device
-    cand, _ = epc_period_grid(cfg)
-    probes, _ = _energy_positions(cfg)
+    probes, cand, _, _ = _period_device(cfg, dev)
     e0 = _energy_starts(index, magn2.shape[1], cfg)
-    epos = e0[:, None, None] + profiling.to_device(probes, dev)[None]
+    epos = e0[:, None, None] + probes[None]
     energy = magn2[torch.arange(magn2.shape[0], device=dev)[:, None, None],
                    epos].sum(dim=2)                       # (E, steps)
     t_sel = torch.argmax(energy, dim=1)
-    return t_sel, profiling.to_device(cand, dev)[t_sel]
+    return t_sel, cand[t_sel]
 
 
 def epc_diff_samples(frames: torch.Tensor, index: torch.Tensor, t_sel: torch.Tensor,
@@ -177,13 +196,13 @@ def epc_diff_samples(frames: torch.Tensor, index: torch.Tensor, t_sel: torch.Ten
     """Differential samples (E, ..., n_bits) at period t_sel's truncated
     positions past each (clamped) index (fm0.py:318-337), for frames
     (E, ..., W): a diversity decode's channels share an index and period."""
-    i1, i2, span = _bit_position_tables(cfg)
-    dev = frames.device
+    _, _, span = _bit_position_tables(cfg)
+    _, _, i1, i2 = _period_device(cfg, frames.device)
     # dynamic_slice semantics: the start is clamped into [0, w - span].
     sl_start = torch.clamp(index.to(torch.int64), 0, frames.shape[-1] - span)
 
     def at(tab):
-        p = sl_start[:, None] + profiling.to_device(tab, dev)[t_sel]      # (E, n_bits)
+        p = sl_start[:, None] + tab[t_sel]                                # (E, n_bits)
         p = p.reshape((p.shape[0],) + (1,) * (frames.dim() - 2) + (p.shape[1],))
         return frames.gather(-1, p.expand(frames.shape[:-1] + (p.shape[-1],)))
 

@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import profiling
+from .filters import f32_scalar
 
 # Fraction of the FFT length around DC treated as the wanted carrier: at
 # the default 2 Msps this masks +-20 kHz.
@@ -45,7 +45,7 @@ def _pow2(n: int) -> int:
 def _phase(f: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """exp(-2j*pi*f*t) with the phase rounded in float32 as the reference
     rounds it."""
-    theta = (profiling.to_device(-2.0 * math.pi, t.device, torch.float32) * f) * t
+    theta = (f32_scalar(-2.0 * math.pi, t.device) * f) * t
     return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
@@ -60,11 +60,11 @@ def cancel_cw_planar(x2: torch.Tensor, n_tones: int = 1,
     x = torch.complex(x2[0].to(f32), x2[1].to(f32))
     t = torch.arange(n, dtype=f32, device=dev)
     half = n // 2
-    guard_lin = profiling.to_device(10.0 ** (min_excess_db / 20.0), dev, f32)
+    guard_lin = f32_scalar(10.0 ** (min_excess_db / 20.0), dev)
     k = torch.arange(nf, device=dev)
     dc_w = int(max(1, round(nf * _DC_MASK_FRAC)))
     near_dc = (k < dc_w) | (k >= nf - dc_w)
-    two_pi_half = profiling.to_device(2.0 * math.pi * half, dev, f32)
+    two_pi_half = f32_scalar(2.0 * math.pi * half, dev)
     for _ in range(n_tones):
         mag = torch.fft.fft(x, n=nf).abs()
         magm = torch.where(near_dc, 0.0, mag)

@@ -42,18 +42,26 @@ def data_shift(cfg: ReaderConfig) -> int:
     return int(cfg.tag_preamble_bits * cfg.n_samples_tag_bit + cfg.n_samples_tag_bit / 2.0)
 
 
+@functools.lru_cache(maxsize=32)
+def _search_device(cfg: ReaderConfig, device: torch.device):
+    """The preamble search's tables on a device, kept for the next decode:
+    the (n_hb, n_off) int64 sample position of each half-bit at each offset,
+    the (n_hb, 1) float32 template and the channel chips' int64 rows."""
+    hb_pos, chips, n_off = sync_positions(cfg)
+    return (profiling.to_device(hb_pos[:, None] + np.arange(n_off), device),
+            profiling.to_device(_PREAMBLE_PM[:, None], device),
+            profiling.to_device(chips, device))
+
+
 def preamble_search(frames: torch.Tensor, cfg: ReaderConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(correlation power, channel mean), each (..., n_off), of the preamble
     at every search offset of frames (..., W) complex64."""
-    hb_pos, chips, n_off = sync_positions(cfg)
-    dev = frames.device
-    pos = profiling.to_device(hb_pos, dev)[:, None] + torch.arange(n_off, device=dev)
+    pos, pm, chips = _search_device(cfg, frames.device)
     x = frames[..., pos]                                 # (..., n_hb, n_off)
-    pm = profiling.to_device(_PREAMBLE_PM, dev)[:, None]
     corr_re = (x.real * pm).sum(dim=-2)
     corr_im = (x.imag * pm).sum(dim=-2)
-    h_all = x[..., profiling.to_device(chips, dev), :].mean(dim=-2)
+    h_all = x[..., chips, :].mean(dim=-2)
     return corr_re ** 2 + corr_im ** 2, h_all
 
 

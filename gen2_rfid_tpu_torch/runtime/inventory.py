@@ -91,10 +91,16 @@ def expected_pulse_counts(cfg: ReaderConfig) -> np.ndarray:
     )
 
 
+@functools.lru_cache(maxsize=32)
+def _pulse_counts_device(cfg: ReaderConfig, device: torch.device) -> torch.Tensor:
+    """``expected_pulse_counts`` on a device, kept for the next decode."""
+    return profiling.to_device(expected_pulse_counts(cfg), device)
+
+
 def classify_commands(n_pulses: torch.Tensor, cfg: ReaderConfig) -> torch.Tensor:
     """Command type per event from its pulse count: within +-1 of a unique
     expected count, else CMD_UNKNOWN (inventory.py:90-106)."""
-    table = profiling.to_device(expected_pulse_counts(cfg), n_pulses.device)
+    table = _pulse_counts_device(cfg, n_pulses.device)
     diff = (n_pulses[:, None] - table[None, :]).abs()
     best = torch.argmin(diff, dim=1).to(_I32)
     dmin = diff.min(dim=1).values
@@ -121,20 +127,34 @@ def classify_slots(energy, margin, noise_var, h2, energy_factor: float = 4.0,
                        SLOT_EMPTY).to(_I32)
 
 
-def _gf2_product(bits: torch.Tensor, m: np.ndarray) -> torch.Tensor:
-    """bits (E, K) 0/1 @ m (K, C) 0/1 as exact integer counts.  The product
-    runs in float32 (CUDA has no integer matmul): every term is 0 or 1 and
-    every sum is at most K, exact in float32 even with TF32 inputs."""
-    mt = profiling.to_device(m, bits.device, torch.float32)
-    return torch.matmul(bits.to(torch.float32), mt).round().to(_I32)
+def _gf2_product(bits: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """bits (E, K) 0/1 @ m (K, C) 0/1 float32 as exact integer counts.  The
+    product runs in float32 (CUDA has no integer matmul): every term is 0 or
+    1 and every sum is at most K, exact in float32 even with TF32 inputs."""
+    return torch.matmul(bits.to(torch.float32), m).round().to(_I32)
+
+
+@functools.lru_cache(maxsize=32)
+def _bit_weights(n: int, device: torch.device) -> torch.Tensor:
+    """(n,) int64 weights 2**(n-1) .. 1 of an MSB-first bit field, on a
+    device, kept for the next decode."""
+    return profiling.to_device(2 ** np.arange(n - 1, -1, -1), device)
+
+
+@functools.lru_cache(maxsize=8)
+def _crc_fixed_device(n_data: int, device: torch.device):
+    """The fixed-length CRC's (M^T float32, c0 int32) on a device, kept for
+    the next decode."""
+    m, c0 = crc16_affine(n_data)
+    return (profiling.to_device(m.T, device, torch.float32),
+            profiling.to_device(c0.astype(np.int32), device))
 
 
 def check_epc_crc_batch(epc_bits: torch.Tensor) -> torch.Tensor:
     """Fixed-length CRC-16 check of (E, n_bits) frames -> (E,) bool."""
     n_data = epc_bits.shape[1] - 16
-    m, c0 = crc16_affine(n_data)
-    crc = (_gf2_product(epc_bits[:, :n_data], m.T) % 2) ^ profiling.to_device(
-        c0.astype(np.int32), epc_bits.device)[None, :]
+    mt, c0 = _crc_fixed_device(n_data, epc_bits.device)
+    crc = (_gf2_product(epc_bits[:, :n_data], mt) % 2) ^ c0[None, :]
     return torch.all(crc == epc_bits[:, n_data:], dim=1)
 
 
@@ -157,28 +177,38 @@ def _pc_length_tables(n_bits: int):
     return m_all, c0_all, r_all, id_all, l_max
 
 
+@functools.lru_cache(maxsize=8)
+def _pc_length_device(n_bits: int, device: torch.device):
+    """``_pc_length_tables`` on a device, kept for the next decode: M, R and
+    ID float32 for ``_gf2_product``, c0 int32, and l_max."""
+    m_all, c0_all, r_all, id_all, l_max = _pc_length_tables(n_bits)
+
+    def f32(a):
+        return profiling.to_device(a, device, torch.float32)
+
+    return f32(m_all), profiling.to_device(c0_all, device), f32(r_all), f32(id_all), l_max
+
+
 def check_epc_crc_pc(epc_bits: torch.Tensor):
     """PC-length-aware validation: (pass (E,) bool, tag_id (E,) int32,
     epc_words (E,) int32) (inventory.py:208-234)."""
-    n_bits = epc_bits.shape[1]
     dev = epc_bits.device
-    m_all, c0_all, r_all, id_all, l_max = _pc_length_tables(n_bits)
-    crc_all = (_gf2_product(epc_bits, m_all) % 2) ^ profiling.to_device(c0_all, dev)
+    m_all, c0_all, r_all, id_all, l_max = _pc_length_device(epc_bits.shape[1], dev)
+    crc_all = (_gf2_product(epc_bits, m_all) % 2) ^ c0_all
     rec_all = _gf2_product(epc_bits, r_all)
     match = torch.all((crc_all == rec_all).reshape(-1, l_max + 1, 16), dim=2)
     ids = _gf2_product(epc_bits, id_all).reshape(-1, l_max + 1, 8)
-    w5 = profiling.to_device(2 ** np.arange(4, -1, -1), dev)
-    l_parsed = (epc_bits[:, :5].to(torch.int64) * w5).sum(dim=1)
+    l_parsed = (epc_bits[:, :5].to(torch.int64) * _bit_weights(5, dev)).sum(dim=1)
     lc = torch.clamp(l_parsed, 0, l_max)
     ok = match.gather(1, lc[:, None])[:, 0] & (l_parsed <= l_max)
-    w8 = profiling.to_device(2 ** np.arange(7, -1, -1), dev)
-    tid = (ids[torch.arange(ids.shape[0], device=dev), lc].to(torch.int64) * w8).sum(dim=1)
+    tid = (ids[torch.arange(ids.shape[0], device=dev), lc].to(torch.int64)
+           * _bit_weights(8, dev)).sum(dim=1)
     return ok, tid.to(_I32), l_parsed.to(_I32)
 
 
 def _tag_ids(epc_bits: torch.Tensor) -> torch.Tensor:
     """Reference tag id: EPC frame bits[104:112] as an integer."""
-    w8 = profiling.to_device(2 ** np.arange(7, -1, -1), epc_bits.device)
+    w8 = _bit_weights(8, epc_bits.device)
     return (epc_bits[:, 104:112].to(torch.int64) * w8).sum(dim=1).to(_I32)
 
 
@@ -264,6 +294,26 @@ def _decode_events_paranoid(y, events: GateEvents, cmd, cfg) -> DecodedEvents:
     )
 
 
+def _decode_events_queued(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
+                          specialize: bool):
+    """(decoded events, overflow): ``decode_events`` queued with no read.
+    ``overflow`` is a 0-d device flag, whether either role holds more events
+    than the specialized decode's per-role tables, or None where the
+    paranoid decode ran or the tables hold the whole capacity."""
+    cmd = classify_commands(events.n_pulses, cfg)
+    if not specialize:
+        return _decode_events_paranoid(y, events, cmd, cfg), None
+    cap = events.index.shape[0]
+    cap_q = min(cap, cap // 2 + 1 + ROLE_SLACK)
+    role_q, role_a = command_roles(cmd, events.valid)
+    overflow = None
+    if cap_q != cap:
+        overflow = (role_q.sum() > cap_q) | (role_a.sum() > cap_q)
+    dec = _decode_specialized(y[None], GateEvents(*(t[None] for t in events)), cmd[None],
+                              role_q[None], role_a[None], cap_q, cfg)
+    return DecodedEvents(*(t[0] for t in dec)), overflow
+
+
 @profiling.spanned("gen2.decode_events")
 def decode_events(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
                   specialize: bool = False, overflow_fallback: bool = True
@@ -274,21 +324,12 @@ def decode_events(y: torch.Tensor, events: GateEvents, cfg: ReaderConfig,
     ``specialize=True`` decodes only the window its classified command opens,
     over per-role tables of half the capacity plus ``ROLE_SLACK``.  A table
     that overflows them goes to the paranoid decode when
-    ``overflow_fallback`` is set (inventory.py:373-423)."""
-    cmd = classify_commands(events.n_pulses, cfg)
-    if not specialize:
-        return _decode_events_paranoid(y, events, cmd, cfg)
-    cap = events.index.shape[0]
-    cap_q = min(cap, cap // 2 + 1 + ROLE_SLACK)
-    role_q, role_a = command_roles(cmd, events.valid)
-    if overflow_fallback and cap_q != cap:
-        n_q = profiling.host_read(role_q.sum())
-        n_a = profiling.host_read(role_a.sum())
-        if n_q > cap_q or n_a > cap_q:
-            return _decode_events_paranoid(y, events, cmd, cfg)
-    dec = _decode_specialized(y[None], GateEvents(*(t[None] for t in events)), cmd[None],
-                              role_q[None], role_a[None], cap_q, cfg)
-    return DecodedEvents(*(t[0] for t in dec))
+    ``overflow_fallback`` is set (inventory.py:373-423): one read of the
+    overflow flag, after the specialized decode is queued."""
+    dec, overflow = _decode_events_queued(y, events, cfg, specialize)
+    if overflow_fallback and overflow is not None and profiling.host_read(overflow):
+        return _decode_events_paranoid(y, events, dec.cmd_type, cfg)
+    return dec
 
 
 def _compact_rows(mask: torch.Tensor, sub_cap: int) -> torch.Tensor:
@@ -466,10 +507,11 @@ def _tag_histogram(passed: torch.Tensor, tag_id: torch.Tensor) -> torch.Tensor:
     return reads.index_add(0, sel, torch.ones_like(sel, dtype=_I32))[:N_TAG_BINS]
 
 
-def _replay_fast_ok(dec: DecodedEvents, cfg: ReaderConfig) -> bool:
-    """Preconditions of the closed-form replay (inventory.py:718-747): every
-    valid event classified, unfit events only as a trailing run, processed
-    events at least one window apart, termination limits not reached."""
+def _replay_fast_ok(dec: DecodedEvents, cfg: ReaderConfig) -> torch.Tensor:
+    """Preconditions of the closed-form replay (inventory.py:718-747), as a
+    0-d device flag: every valid event classified, unfit events only as a
+    trailing run, processed events at least one window apart, termination
+    limits not reached."""
     role_q, role_epc, fit_v, unfit_seen, proc = _processed(dec)
     valid = dec.valid
     all_known = torch.all(~valid | role_q | role_epc)
@@ -480,9 +522,8 @@ def _replay_fast_ok(dec: DecodedEvents, cfg: ReaderConfig) -> bool:
     n_q = (proc & role_q).sum()
     reads = _tag_histogram(proc & role_epc & dec.epc_pass, dec.tag_id)
     n_uni = (reads > 0).sum()
-    return profiling.host_read(all_known & ~refit_after_unfit & torch.all(gap_ok)
-                               & (n_q <= cfg.max_num_queries)
-                               & (n_uni <= cfg.max_unique_tags))
+    return (all_known & ~refit_after_unfit & torch.all(gap_ok)
+            & (n_q <= cfg.max_num_queries) & (n_uni <= cfg.max_unique_tags))
 
 
 def _first_passes(passed: torch.Tensor, tag_id: torch.Tensor) -> torch.Tensor:
@@ -539,36 +580,47 @@ def _replay_fast_stats(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
 # Tables replayed, by route: the closed form, or the sequential scan when
 # its preconditions fail.  Host ints, counted without a sync.
 replays = {"closed_form": 0, "scan": 0}
+# decode_block's tables whose one read found the role tables overflowed, so
+# that they were decoded again by the paranoid decode.  A host int, counted
+# without a sync.
+redecodes = {"paranoid": 0}
 
 
-def _replay(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
-    if _replay_fast_ok(dec, cfg):
-        replays["closed_form"] += 1
-        return _replay_fast_stats(dec, cfg)
-    replays["scan"] += 1
-    return replay_inventory_scan(dec, cfg)
+def _replay_tables(decs, cfg: ReaderConfig, overflow: torch.Tensor = None):
+    """Each table's replay (inventory.py:772-797): every table's closed form
+    is queued behind its preconditions' device flag, then one read takes
+    every flag (and ``overflow``'s, when given), and a table whose flag
+    fails gets the exact sequential scan.  None, with nothing counted, where
+    ``overflow`` reads true."""
+    oks = [_replay_fast_ok(d, cfg) for d in decs]
+    fast = [_replay_fast_stats(d, cfg) for d in decs]
+    if overflow is not None:
+        oks.append(overflow)
+    flags = profiling.host_read(torch.stack(oks))
+    if overflow is not None and flags[-1]:
+        return None
+    stats = []
+    for d, f, ok in zip(decs, fast, flags):
+        replays["closed_form" if ok else "scan"] += 1
+        stats.append(f if ok else replay_inventory_scan(d, cfg))
+    return stats
 
 
 @profiling.spanned("gen2.replay")
 def replay_inventory(dec: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     """Round FSM replay: the closed form when its preconditions hold, else
     the exact sequential scan (inventory.py:772-797)."""
-    return _replay(dec, cfg)
+    return _replay_tables([dec], cfg)[0]
 
 
 @profiling.spanned("gen2.replay")
 def replay_inventory_batch(dec_c: DecodedEvents, cfg: ReaderConfig) -> InventoryStats:
     """Per-channel replay of (C, cap) tables, each stats leaf stacked on a
-    leading channel axis (inventory.py:750-769): the closed form for every
-    channel when every channel's table allows it, else ``replay_inventory``
-    channel by channel.  The same stats as replaying each channel alone."""
+    leading channel axis (inventory.py:750-769): each channel's closed form
+    or scan, as its own preconditions say, with one read of every channel's
+    verdict.  The same stats as replaying each channel alone."""
     decs = [DecodedEvents(*(f[k] for f in dec_c)) for k in range(dec_c.index.shape[0])]
-    if all(_replay_fast_ok(d, cfg) for d in decs):
-        replays["closed_form"] += len(decs)
-        stats = [_replay_fast_stats(d, cfg) for d in decs]
-    else:
-        stats = [_replay(d, cfg) for d in decs]
-    return InventoryStats(*(torch.stack(f) for f in zip(*stats)))
+    return InventoryStats(*(torch.stack(f) for f in zip(*_replay_tables(decs, cfg))))
 
 
 def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
@@ -580,13 +632,27 @@ def decode_block(y: torch.Tensor, cfg: ReaderConfig, flags: torch.Tensor = None,
     when not given; ``amp``/``avg``: |y| and its windowed average from the
     front end, which compat mode and the exact gate need.  Native mode
     decodes role-specialized windows; compat decodes every event as both
-    windows, as the reference decoder runs both branches' arithmetic."""
+    windows, as the reference decoder runs both branches' arithmetic.
+
+    The host waits on the device once, after the whole decode is queued:
+    one read takes the role tables' overflow flag and the closed form's
+    verdict together.  A table that overflowed is decoded again by the
+    paranoid decode and replayed (``redecodes``); one that fails the closed
+    form's preconditions is scanned.  The outputs are those of
+    ``decode_events`` and ``replay_inventory`` in turn."""
     if exact_gate:
         events = gate_detect_scan(y, cfg, amp, avg)
     else:
         events = gate_detect(y, cfg, flags, amp, avg)
-    dec = decode_events(y, events, cfg, specialize=cfg.mode != "compat")
-    return replay_inventory(dec, cfg), dec
+    with profiling.span("gen2.decode_events"):
+        dec, overflow = _decode_events_queued(y, events, cfg, cfg.mode != "compat")
+    with profiling.span("gen2.replay"):
+        stats = _replay_tables([dec], cfg, overflow)
+    if stats is None:
+        redecodes["paranoid"] += 1
+        dec = decode_events(y, events, cfg)
+        return replay_inventory(dec, cfg), dec
+    return stats[0], dec
 
 
 def matched_taps(cfg: ReaderConfig):

@@ -16,6 +16,7 @@ index first (``torch.topk`` promises no order among ties).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -25,10 +26,12 @@ from ..config import ReaderConfig
 from ..utils import profiling
 
 
-def _pair_indices(k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(i, j) index vectors of all i < j pairs among k events."""
+@functools.lru_cache(maxsize=32)
+def _pair_indices(k: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(i, j) int64 index vectors of all i < j pairs among k events, on a
+    device, kept for the next decode."""
     pi, pj = np.triu_indices(k, 1)
-    return pi.astype(np.int64), pj.astype(np.int64)
+    return tuple(profiling.to_device(v.astype(np.int64), device) for v in (pi, pj))
 
 
 def candidate_flips(bits: torch.Tensor, rel: torch.Tensor, k: int,
@@ -46,7 +49,7 @@ def candidate_flips(bits: torch.Tensor, rel: torch.Tensor, k: int,
     masks = ar[None, None, :] == idx[:, :, None]          # (E, k, n)
     if fm0_pairs:
         masks = masks | (ar[None, None, :] == idx[:, :, None] + 1)
-    pi, pj = (profiling.to_device(v, dev) for v in _pair_indices(k))
+    pi, pj = _pair_indices(k, dev)
     all_masks = torch.cat([masks, masks[:, pi] ^ masks[:, pj]], dim=1)
     cost = torch.cat([relk, relk[:, pi] + relk[:, pj]], dim=1)
     cands = bits[:, None, :].to(torch.int32) ^ all_masks.to(torch.int32)

@@ -1214,35 +1214,64 @@ def bench_workload():
     return w
 
 
-def test_spans_cover_every_sync_of_a_decode(bench_workload):
-    """Each synchronizing call that the sync debug mode reports over one
-    decode, past those it reports over an empty block (turning the mode on
-    and off), is made inside the recorder's helpers, and there are as many
-    as host-sync spans."""
+def _sync_calls(fn):
+    """Where (``file:line``) the sync debug mode reports each synchronizing
+    call made by ``fn()``, past those it reports over an empty block run
+    first (turning the mode on and off)."""
     import collections
     import warnings
 
-    from gen2_rfid_tpu_torch.utils import profiling
-
-    def reported(fn):
+    def reported(f):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                fn()
+                f()
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         return collections.Counter(f"{w.filename}:{w.lineno}" for w in caught
                                    if "synchroniz" in str(w.message))
 
     empty = reported(lambda: None)
+    return reported(fn) - empty
+
+
+def test_spans_cover_every_sync_of_a_decode(bench_workload):
+    """Each synchronizing call that the sync debug mode reports over one
+    decode is made inside the recorder's helpers, and there are as many as
+    host-sync spans."""
+    from gen2_rfid_tpu_torch.utils import profiling
+
     with profiling.recording():
-        during = reported(lambda: bench_workload.decode(bench_workload.x2))
-    syncs = during - empty
+        syncs = _sync_calls(lambda: bench_workload.decode(bench_workload.x2))
     rows = profiling.spans()
     assert [r["name"] for r in rows if r["parent"] is None] == ["gen2.decode_capture"]
     assert sum(syncs.values()) == sum(r["name"] in SYNC_SPANS for r in rows) > 0, syncs
     assert all(loc.rsplit(":", 1)[0].endswith("utils/profiling.py") for loc in syncs), syncs
+
+
+def test_a_decode_syncs_once_inside_host_read(bench_workload):
+    """A bench decode, its host tables already on the card, makes one
+    synchronizing call, inside ``profiling.host_read``: the replay's one
+    read of the overflow flag and the closed form's verdict.  Its spans
+    hold one ``gen2.host_read``, under ``gen2.replay``, and no
+    ``gen2.host_copy``."""
+    import inspect
+
+    from gen2_rfid_tpu_torch.utils import profiling
+
+    with profiling.recording():
+        syncs = _sync_calls(lambda: bench_workload.decode(bench_workload.x2))
+    rows = profiling.spans()
+    assert sum(syncs.values()) == 1, syncs
+    (loc,) = syncs
+    path, line = loc.rsplit(":", 1)
+    lines, first = inspect.getsourcelines(profiling.host_read)
+    assert path.endswith("utils/profiling.py") and first <= int(line) < first + len(lines), loc
+    names = {r["index"]: r["name"] for r in rows}
+    syncs_spans = [r for r in rows if r["name"] in SYNC_SPANS]
+    assert [(r["name"], names[r["parent"]]) for r in syncs_spans] == [
+        ("gen2.host_read", "gen2.replay")]
 
 
 def test_stage_device_times_sum_to_the_root(bench_workload):

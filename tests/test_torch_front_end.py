@@ -113,7 +113,7 @@ def test_each_decode_forms_its_gate_input_once(monkeypatch, fresh_window_decoder
 
 
 def test_window_mean_copies_its_divisor_once_a_device():
-    filters._divisor.cache_clear()
+    filters.f32_scalar.cache_clear()
     s = torch.arange(40, dtype=torch.float32)
     with profiling.recording():
         got = [filters.window_mean(s * k, 7) for k in range(3)]

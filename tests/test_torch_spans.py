@@ -23,20 +23,24 @@ from rfidbench.trace import Op, Trace
 
 CFG = ReaderConfig()
 STAGES = ["gen2.front", "gen2.gate", "gen2.decode_events", "gen2.replay"]
-# The host syncs of a native FM0 decode: decode_events' two role counts and
-# the replay's closed-form verdict are read; 18 host tables are copied to
-# the device (the pulse-count table; the preamble search's three tables for
-# the RN16 and the EPC windows; the RN16's half-bit offsets; the period
-# search's probes and grid; the EPC's two bit-position tables; the PC-aware
-# CRC's three products, its constant and two bit weights).
-READS, COPIES = 3, 18
+# The host syncs of a native FM0 decode: one read, inside the replay, takes
+# the role tables' overflow flag and the closed form's verdict together,
+# once the whole decode is queued.  No host table is copied: the first
+# decode on a device copies them (the pulse-count table; the preamble
+# search's three tables; the RN16's half-bit offsets; the period search's
+# probes and grid; the EPC's two bit-position tables; the PC-aware CRC's
+# three products, its constant and two bit weights) and keeps them there,
+# and ``golden_x2`` makes that decode.
+READS, COPIES = 1, 0
 SPAN_READERS = ["front_ms", "gate_ms", "decode_events_ms", "replay_ms",
                 "host_syncs_per_decode", "host_wait_ms"]
 
 
 @pytest.fixture(scope="module")
 def golden_x2():
-    return to_planar(golden_trace(CFG).iq)
+    x2 = to_planar(golden_trace(CFG).iq)
+    decode(x2)
+    return x2
 
 
 def decode(x2):
